@@ -1,0 +1,557 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. device   — the card's name, capability (9, 0) required, and
+               ``nvidia-smi --query-gpu=name,power.limit``;
+2. build    — every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, all
+               in parallel, into the git-ignored ``build/kernels``;
+3. kernels  — each kernel against its plain PyTorch version on the card at
+               ViT-Base shapes (bitwise, or within the bound stated below),
+               and its time beside its bound, the plain version's time and a
+               library call's time where one computes the same function;
+4. fit      — ``PrivacySession.fit()``: 3 Poisson DP-SGD steps of
+               full-width ViT-Base with ``masked_fused_stream``; every
+               kernel's launch counter is set to 0 before and read after;
+               then ``masked_pe`` against ``masked_fused_stream`` on one
+               fixed physical batch (at the sized tile, and at a forced
+               smaller tile that pads the batch and carries the accumulator
+               over several tiles), each streaming call's peak memory
+               against the tile-sizing rule's model of it, one streaming
+               call at a batch where the rule binds, and the training CLI
+               with ``masked_pe``.
+
+The line before the last lists the kernels as JSON; the last line is
+``{"ok": true, "device": {...}}``.  The full record goes to
+``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run outside a
+checkout of the repository, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# the card's published peaks (NVIDIA H100 SXM data sheet); the int32 rate is
+# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+I32_OPS_PER_S = 16.7e12
+
+NORMAL_ULP_BOUND = 2          # in-kernel normals against the plain version
+# masked_fused_stream at a tile below the batch against masked_pe at the
+# whole batch, as a share of max |acc|: a row's per-example gradient bits
+# depend on the vmap width, and the bf16 activations turn a last-bit f32
+# difference into a bf16 rounding step (2^-8); the same bound as the CPU
+# tests' bf16 per-example gradients.  The engine's own arithmetic is held
+# bitwise against the tile-wise fold (tilewise_fold) instead
+STREAM_PE_REL_TOL = 5e-2
+# a forced tile below the physical batch of 32: three tiles, the last one
+# padded by 4 copies of example 0 with mask 0
+STREAM_SMALL_TILE = 12
+# ops per element of the Threefry momentum update: 7 f32 ops of the update
+# + 8 of Box-Muller (log, sqrt and cos counted as one each); 20 rounds of
+# add, rotate (one funnel shift) and xor, 5 key injections of two adds, the
+# two counter adds and the two shifts of bits_to_normal
+THREEFRY_UPDATE_F32_OPS = 15
+THREEFRY_I32_OPS = 20 * 3 + 5 * 2 + 2 + 2
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    """(least time in ms, "bytes" | "operations") for the work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_ulp(a, b) -> int:
+    """Largest distance in float32 ULPs (ordered bit patterns)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.contiguous().view(torch.int32),
+                            b.contiguous().view(torch.int32)))
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def check_noisy_update(view, device, timer, seed=(0x1234, 0xBEEF)):
+    """noisy_sgd_update on the largest leaf and on the full flat buffer."""
+    import torch
+    from repro_torch.kernels import noisy_update as nu
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    largest = max(range(len(view.names)), key=lambda i: view.sizes[i])
+    checks = {}
+    max_err = 0.0
+    for label, n in ((view.names[largest], view.sizes[largest]),
+                     ("flat", view.total)):
+        r = lambda: torch.randn(n, generator=gen, device=device)
+        p0, a, z, m0 = r(), r(), r(), r()
+        c = {}
+        # Threefry bits: the kernel's device function vs threefry2x32
+        k0, k1 = nu.threefry_bits(seed, n, device)
+        c0 = torch.arange(n, dtype=torch.int64, device=device)
+        r0, r1 = nu.threefry2x32(seed[0], seed[1], c0, torch.zeros_like(c0))
+        c["threefry_bits_bitwise"] = bool(torch.equal(k0, r0)
+                                          and torch.equal(k1, r1))
+        assert c["threefry_bits_bitwise"], f"{label}: Threefry bits differ"
+        del k0, k1, r0, r1, c0
+        # normals: p=0, acc=0, sigma_c=1, L=1, lr=-1 makes p exactly z
+        zk = torch.zeros(n, device=device)
+        nu.noisy_sgd_update(zk, torch.zeros(n, device=device), None, 1.0,
+                            1.0, -1.0, seed=seed)
+        zp = nu.threefry_normal(seed, n, device)
+        c["normal_max_ulp"] = max_ulp(zk, zp)
+        c["normal_max_abs"] = float((zk - zp).abs().max())
+        assert c["normal_max_ulp"] <= NORMAL_ULP_BOUND, (label, c)
+        del zk, zp
+        for mom in (0.0, 0.9):
+            for kind in ("operand", "none", "threefry"):
+                pk, pp = p0.clone(), p0.clone()
+                mk = m0.clone() if mom else None
+                mp = m0.clone() if mom else None
+                noise = z if kind == "operand" else None
+                sd = seed if kind == "threefry" else None
+                args = (2.3, 64.0, 1e-3)
+                nu.noisy_sgd_update(pk, a, noise, *args, momentum_buf=mk,
+                                    momentum=mom, seed=sd)
+                zz = nu.threefry_normal(sd, n, device) if sd else noise
+                sc, inv_l, lr, mu = nu.update_scalars(*args, mom)
+                nu.noisy_sgd_update_plain(pp, a, zz, sc, inv_l, lr, mp, mu)
+                key = f"{kind}_mom{mom}"
+                err = float((pk - pp).abs().max())
+                if mom:
+                    err = max(err, float((mk - mp).abs().max()))
+                bitwise = same_bits(pk, pp) and (not mom or same_bits(mk, mp))
+                c[key] = {"bitwise": bitwise, "max_abs_err": err}
+                if kind != "threefry":
+                    assert bitwise, f"{label} {key}: not bitwise {err}"
+                else:
+                    # the normals may differ by NORMAL_ULP_BOUND ULPs; scaled
+                    # by lr * sigma_c / L that stays below p's rounding
+                    assert err <= 1e-6, f"{label} {key}: {err}"
+                max_err = max(max_err, err)
+        checks[label] = c
+        del p0, a, z, m0
+    # timing: the main path's call, one launch per leaf with in-kernel
+    # Threefry noise and momentum, on ViT-Base's leaves
+    params = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
+              for i, nm in enumerate(view.names)}
+    acc = torch.randn(view.total, generator=gen, device=device)
+    mom = torch.zeros(view.total, device=device)
+
+    def kernel_step(seeds=seed):
+        nu.tree_noisy_update(params, acc, seeds, 2.3, 64.0, 1e-3, view=view,
+                             momentum_buf=mom, momentum=0.9)
+
+    sc, inv_l, lr, mu = nu.update_scalars(2.3, 64.0, 1e-3, 0.9)
+
+    def plain_step():
+        for i, nm in enumerate(view.names):
+            o, n = view.offsets[i], view.sizes[i]
+            nu.noisy_sgd_update_plain(
+                params[nm].view(-1), acc[o:o + n],
+                nu.threefry_normal(nu.leaf_seed(seed, i), n, device), sc,
+                inv_l, lr, mom[o:o + n], mu)
+
+    n_par = view.n_params
+    bms, by = bound_ms(20.0 * n_par, THREEFRY_UPDATE_F32_OPS * n_par,
+                       THREEFRY_I32_OPS * n_par)
+    timing = {"ms": timer(kernel_step, 20), "plain_ms": timer(plain_step, 3),
+              "bound_ms": bms, "bound_by": by, "library_ms": None}
+    # the same launches without noise (16 B/param): what the in-kernel
+    # Threefry and Box-Muller cost on top of the memory traffic
+    checks["noise_free_ms"] = timer(lambda: kernel_step(None), 20)
+    checks["noise_free_bound_ms"] = bound_ms(16.0 * n_par)[0]
+    return checks, max_err, timing
+
+
+def check_clip_accum(view, device, tile, timer):
+    """clip_accum_inplace at the full flat length, m in {1, tile}."""
+    import torch
+    from repro_torch.kernels import clip_accum as ca
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    d = view.total
+    checks = {}
+    max_err = 0.0
+    timing = None
+    for m in sorted({1, tile}):
+        norms = torch.rand(m, generator=gen, device=device) * 9.0
+        norms[0] = 0.0
+        mask = (torch.rand(m, generator=gen, device=device) > 0.25).float()
+        mask[0] = 1.0
+        acc0 = torch.randn(d, generator=gen, device=device)
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn(m, d, generator=gen, device=device).to(dt)
+            ak, ap = acc0.clone(), acc0.clone()
+            ca.clip_accum_inplace(ak, g, norms, mask, 4.63)
+            ca.clip_accum_inplace_plain(ap, g, norms, mask, 4.63)
+            err = float((ak - ap).abs().max())
+            key = f"m{m}_{str(dt).split('.')[-1]}"
+            checks[key] = {"bitwise": same_bits(ak, ap), "max_abs_err": err}
+            assert checks[key]["bitwise"], f"clip_accum_inplace {key}: {err}"
+            max_err = max(max_err, err)
+            if m == tile and dt == torch.float32:
+                coef = ca.clip_coefs(norms, mask, 4.63)
+                bms, by = bound_ms((4.0 * m + 8.0) * d, 2.0 * m * d)
+                timing = {
+                    "ms": timer(lambda: ca.clip_accum_inplace(
+                        ak, g, norms, mask, 4.63), 10),
+                    "plain_ms": timer(lambda: ca.clip_accum_inplace_plain(
+                        ap, g, norms, mask, 4.63), 3),
+                    "bound_ms": bms, "bound_by": by,
+                    # one PyTorch call computing the same function on the
+                    # same inputs (another summation order): the yardstick
+                    "library_ms": timer(lambda: ap.addmv_(g.T, coef), 10)}
+            del g, ak, ap
+    return checks, max_err, timing
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path
+# --------------------------------------------------------------------------
+
+def run_fit(arch, device, train_kw):
+    """3 steps of fit() with masked_fused_stream; returns (session, record,
+    launches)."""
+    import torch
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.kernels import clip_accum_inplace, noisy_sgd_update
+    from repro_torch.privacy import epsilon_for
+
+    tc = TrainConfig(**train_kw)
+    session = PrivacySession.from_config(
+        arch, DPConfig(engine="masked_fused_stream", clip_norm=4.63), tc,
+        device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+    noisy_sgd_update.launches = 0
+    clip_accum_inplace.launches = 0
+    t0 = time.perf_counter()
+    out = session.fit()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"noisy_sgd_update": noisy_sgd_update.launches,
+                "clip_accum_inplace": clip_accum_inplace.launches}
+    for name, n in launches.items():
+        assert n > 0, f"fit() launched {name} no time"
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == tc.steps and all(map(math.isfinite, losses)), out
+    assert all(bool(torch.isfinite(p).all())
+               for p in session.state.params.values()), "non-finite params"
+    eps = epsilon_for(tc.sampler, session.describe()["q"],
+                      session.dp.noise_multiplier, tc.steps,
+                      tc.resolved_delta)
+    assert out["final_eps"] == eps, (out["final_eps"], eps)
+    assert eps <= tc.target_eps, eps
+    record = {"history": out["history"], "sigma": out["sigma"],
+              "final_eps": out["final_eps"], "fit_seconds": seconds,
+              "examples_per_s": out["examples_per_s"],
+              "stream_tile": session.describe()["stream_tile"],
+              "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None)}
+    return session, record, launches
+
+
+def _peak_since(dev, fn):
+    """Run ``fn``; return (its result, the peak bytes it allocated over what
+    was allocated when it started, the peak bytes the caching allocator
+    reserved)."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return (out, torch.cuda.max_memory_allocated(dev) - base,
+            torch.cuda.max_memory_reserved(dev))
+
+
+def tilewise_fold(loss_fn, params, batch, mask, m, view, clip_norm):
+    """The streaming engine's sum built the plain way from the same
+    per-example grads it sees: the batch padded by example 0 with mask 0,
+    vmap(grad) over each tile of m, every row flattened on its own, and one
+    strict left fold over all rows from +0."""
+    import torch
+    from repro_torch.core.clipping import clip_coef, per_example_grads_and_sq
+    B = int(mask.shape[0])
+    pad = (-B) % m
+    if pad:
+        batch = {k: torch.cat([v] + [v[:1]] * pad) for k, v in batch.items()}
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    out = view.zeros(mask.device)
+    for start in range(0, B + pad, m):
+        sl = slice(start, start + m)
+        grads, sq = per_example_grads_and_sq(
+            loss_fn, params, {k: v[sl] for k, v in batch.items()})
+        coef, _ = clip_coef(sq, mask[sl], clip_norm)
+        for b in range(m):
+            out = out + view.flatten({k: v[b] for k, v in grads.items()}) \
+                * coef[b]
+        del grads
+    return out
+
+
+def compare_engines(session, tile):
+    """masked_pe against masked_fused_stream on one fixed physical batch at
+    tiles {STREAM_SMALL_TILE, tile, B}, each streaming call's peak memory
+    against the sizing rule's bytes for its tile, one streaming call with
+    the tile left to the rule at a batch where the rule binds, and the
+    per-example gradient bits of one row at vmap widths 1, 2, 4."""
+    import numpy as np
+    import torch
+    from repro_torch.core.clipping import (per_example_grads_and_sq,
+                                           resolve_engine)
+    from repro_torch.data.synthetic import dataset_for_config
+    from repro_torch.launch.costmodel import (STREAM_FIXED_F32_BUFFERS,
+                                              STREAM_PE_SLABS,
+                                              free_memory_bytes,
+                                              stream_tile_size)
+    from repro_torch.utils.params import FlatGradView
+
+    tc, dev = session.train_cfg, session.device
+    ds = dataset_for_config(session.model_cfg, tc.n_data, seed=tc.seed)
+    B = tc.physical_batch
+    batch, mask = session._place(ds.fetch(np.arange(B)),
+                                 (np.arange(B) < B - B // 4)
+                                 .astype(np.float32))
+    params, loss_fn = session.state.params, session.loss_fn
+    view = FlatGradView.for_params(params)
+    stream = resolve_engine("masked_fused_stream")
+    slab = 4.0 * view.n_params
+
+    def modelled_bytes(m):
+        return (STREAM_PE_SLABS * m + STREAM_FIXED_F32_BUFFERS) * slab
+
+    summed, _ = resolve_engine("masked_pe")(loss_fn, params, batch, mask,
+                                            4.63)
+    acc_pe = view.flatten(summed)
+    del summed
+    res = {}
+    for m in sorted({STREAM_SMALL_TILE, tile, B}):
+        acc_s = view.zeros(dev)
+        _, peak, reserved = _peak_since(dev, lambda: stream(
+            loss_fn, params, batch, mask, 4.63, acc=acc_s, view=view,
+            tile=m))
+        err = float((acc_s - acc_pe).abs().max())
+        scale = float(acc_pe.abs().max())
+        fold = tilewise_fold(loss_fn, params, batch, mask, m, view, 4.63)
+        res[f"tile{m}"] = {"bitwise": same_bits(acc_s, acc_pe),
+                           "max_abs_err": err, "max_abs_acc": scale,
+                           "rel_l2_err": float((acc_s - acc_pe).norm()
+                                               / acc_pe.norm()),
+                           "tilewise_fold_bitwise": same_bits(acc_s, fold),
+                           "peak_bytes": peak,
+                           "peak_slabs_per_example": peak / slab / m,
+                           "peak_reserved_bytes": reserved,
+                           "modelled_bytes": modelled_bytes(m)}
+        del fold
+        log(f"stream tile {m} vs masked_pe: {json.dumps(res[f'tile{m}'])}")
+        assert res[f"tile{m}"]["tilewise_fold_bitwise"], (m, res)
+        assert err <= STREAM_PE_REL_TOL * scale, (m, err, scale)
+        assert peak <= modelled_bytes(m), (m, peak, modelled_bytes(m))
+        if m == B:
+            # the same vmap width on the same batch: the same bits
+            assert res[f"tile{m}"]["bitwise"], res
+        del acc_s
+    lo, hi = min(STREAM_SMALL_TILE, B), max(STREAM_SMALL_TILE, B)
+    res["peak_bytes_per_example"] = (res[f"tile{hi}"]["peak_bytes"]
+                                     - res[f"tile{lo}"]["peak_bytes"]) / (
+        hi - lo)
+    res["slab_bytes"] = slab
+    del acc_pe
+    rows = {}
+    for w in (1, 2, 4):
+        g, _ = per_example_grads_and_sq(
+            loss_fn, params, {k: v[:w] for k, v in batch.items()})
+        rows[w] = view.flatten({k: v[0] for k, v in g.items()})
+        del g
+    res["row0_bits_width1_eq_width2"] = same_bits(rows[1], rows[2])
+    res["row0_bits_width2_eq_width4"] = same_bits(rows[2], rows[4])
+    # how far the widths move one row, as a share of its largest entry
+    top = float(rows[4].abs().max())
+    res["row0_width1_vs_4_max_rel"] = float(
+        (rows[1] - rows[4]).abs().max()) / top
+    res["row0_width2_vs_4_max_rel"] = float(
+        (rows[2] - rows[4]).abs().max()) / top
+    del rows, batch, mask
+    torch.cuda.empty_cache()
+    # the rule binding: a batch of twice the tile the rule gives for the
+    # memory free now; the engine sizes its own tile and must not run out
+    free = free_memory_bytes(dev)
+    m_rule = stream_tile_size(10 ** 6, view.n_params, free)
+    n_big = 2 * m_rule
+    big, big_mask = session._place(ds.fetch(np.arange(n_big) % tc.n_data),
+                                   np.ones(n_big, np.float32))
+    acc_s = view.zeros(dev)
+    free = free_memory_bytes(dev)
+    t0 = time.perf_counter()
+    (_, aux), peak, reserved = _peak_since(dev, lambda: stream(
+        loss_fn, params, big, big_mask, 4.63, acc=acc_s, view=view))
+    assert bool(torch.isfinite(acc_s).all()) and bool(
+        torch.isfinite(aux["per_example_norms"]).all())
+    res["rule_binds"] = {"batch": n_big, "free_bytes": free,
+                         "tile": stream_tile_size(n_big, view.n_params, free),
+                         "peak_bytes": peak, "peak_reserved_bytes": reserved,
+                         "seconds": time.perf_counter() - t0}
+    log(f"stream with the rule's tile: {json.dumps(res['rule_binds'])}")
+    assert res["rule_binds"]["tile"] < n_big, res["rule_binds"]
+    assert peak <= free, res["rule_binds"]
+    return res
+
+
+def run_cli(device, arch_args):
+    """The training CLI's flow, in process, with masked_pe."""
+    import math as _m
+    from repro_torch.launch import train
+    out = train.main([*arch_args, "--engine", "masked_pe", "--steps", "1",
+                      "--device", str(device)])
+    assert out["history"] and all(_m.isfinite(h["loss"])
+                                  for h in out["history"]), out
+    return {"history": out["history"], "final_eps": out["final_eps"]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.costmodel import (free_memory_bytes,
+                                              stream_tile_size)
+    from repro_torch.models import build
+    from repro_torch.utils.device import resolve_device
+    from repro_torch.utils.params import FlatGradView
+
+    t_start = time.perf_counter()
+    record = {}
+    # 1. device
+    device = resolve_device("cuda")
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    log(f"device {name}, capability {cap}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    assert cap == (9, 0), f"need an sm_90 card, got capability {cap}"
+    record["device"] = {"name": name, "nvidia_smi": smi,
+                        "torch": torch.__version__, "cuda": torch.version.cuda}
+    # 2. build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    record["build_seconds"] = time.perf_counter() - t0
+    log(f"built {sorted(libs)} in {record['build_seconds']:.1f} s")
+    # 3. kernels at ViT-Base shapes
+    cfg = get_config("vit-base")
+    model = build(cfg, device=device)
+    view = FlatGradView.for_params(model.params())
+    del model
+    train_kw = dict(steps=3, n_data=512, q=0.125, physical_batch=32,
+                    target_eps=8.0, smoke=False)
+    tile = stream_tile_size(train_kw["physical_batch"], view.n_params,
+                            free_memory_bytes(device))
+    log(f"ViT-Base: {view.n_params} params, flat {view.total}, "
+        f"stream tile {tile}")
+    nu_checks, nu_err, nu_time = check_noisy_update(view, device, cuda_ms)
+    log(f"noisy_sgd_update: {json.dumps(nu_checks)} {json.dumps(nu_time)}")
+    ca_checks, ca_err, ca_time = check_clip_accum(view, device, tile, cuda_ms)
+    log(f"clip_accum_inplace: {json.dumps(ca_checks)} {json.dumps(ca_time)}")
+    record["kernel_checks"] = {"noisy_sgd_update": nu_checks,
+                               "clip_accum_inplace": ca_checks}
+    torch.cuda.empty_cache()
+    # 4. fit() at full width, then the engines on one batch, then the CLI
+    session, record["fit"], launches = run_fit("vit-base", device, train_kw)
+    log(f"fit: {json.dumps(record['fit'])} launches {launches}")
+    record["engines"] = compare_engines(session, record["fit"]["stream_tile"]
+                                        or tile)
+    log(f"masked_pe vs masked_fused_stream: {json.dumps(record['engines'])}")
+    del session
+    torch.cuda.empty_cache()
+    record["cli_masked_pe"] = run_cli(device, ["--arch", "vit-base"])
+    log(f"cli masked_pe: {json.dumps(record['cli_masked_pe'])}")
+    # 5. the kernels line
+    kernels = [
+        {"name": "noisy_sgd_update", "route": "cuda",
+         "source": "src/repro_torch/csrc/noisy_update.cu",
+         "replaces": "src/repro/kernels/noisy_update.py:166",
+         "launches": launches["noisy_sgd_update"], "max_abs_err": nu_err,
+         **nu_time},
+        {"name": "clip_accum_inplace", "route": "cuda",
+         "source": "src/repro_torch/csrc/clip_accum.cu",
+         "replaces": "src/repro/kernels/clip_accum.py:125",
+         "launches": launches["clip_accum_inplace"], "max_abs_err": ca_err,
+         **ca_time},
+    ]
+    record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"done in {record['seconds']:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

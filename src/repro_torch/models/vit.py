@@ -1,0 +1,148 @@
+"""ViT classifier — the paper's own benchmark model (ViT-Base/16 @ 224,
+CIFAR-100 head), as an ``nn.Module``.
+
+Parameter names are the reference's ``param_path`` strings
+(``patch.w``, ``blocks.attn.wq.w``, ``lnf.g.w`` ...).  The transformer
+blocks keep the reference's stacked layout: every ``blocks.*`` leaf has a
+leading ``n_layers`` axis, unbound once per forward and looped in Python.
+Call the model functionally (:meth:`ViT.loss` uses
+``torch.func.functional_call``), so ``torch.func.vmap(torch.func.grad(...))``
+gives per-example gradients.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from ..utils.params import path_key
+from . import common as cm
+
+
+class _Leaf(nn.Module):
+    """One parameter named ``w`` (the reference's ``{"w": ...}`` nodes)."""
+
+    def __init__(self, value: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(value)
+
+
+class _Dense(nn.Module):
+    def __init__(self, shape, bias: bool, gen: torch.Generator, device):
+        super().__init__()
+        din = shape[-2]
+        self.w = nn.Parameter(torch.randn(shape, generator=gen, device=device)
+                              * din ** -0.5)
+        if bias:
+            self.b = nn.Parameter(torch.zeros(shape[:-2] + shape[-1:],
+                                              device=device))
+
+
+class _LayerNorm(nn.Module):
+    def __init__(self, shape, device):
+        super().__init__()
+        self.g = _Leaf(torch.ones(shape, device=device))
+        self.b = _Leaf(torch.zeros(shape, device=device))
+
+
+class _Attention(nn.Module):
+    def __init__(self, lead, d, h, dh, gen, device):
+        super().__init__()
+        self.wq = _Dense(lead + (d, h * dh), True, gen, device)
+        self.wk = _Dense(lead + (d, h * dh), True, gen, device)
+        self.wv = _Dense(lead + (d, h * dh), True, gen, device)
+        self.wo = _Dense(lead + (h * dh, d), False, gen, device)
+
+
+class _GeluMLP(nn.Module):
+    def __init__(self, lead, d, d_ff, gen, device):
+        super().__init__()
+        self.w1 = _Dense(lead + (d, d_ff), True, gen, device)
+        self.w2 = _Dense(lead + (d_ff, d), True, gen, device)
+
+
+class _Blocks(nn.Module):
+    """The n_layers transformer blocks, each leaf stacked on axis 0."""
+
+    def __init__(self, cfg: ArchConfig, gen, device):
+        super().__init__()
+        lead, d = (cfg.n_layers,), cfg.d_model
+        self.ln1 = _LayerNorm(lead + (d,), device)
+        self.attn = _Attention(lead, d, cfg.n_heads, cfg.hd, gen, device)
+        self.ln2 = _LayerNorm(lead + (d,), device)
+        self.mlp = _GeluMLP(lead, d, cfg.d_ff, gen, device)
+
+
+def _get(module: nn.Module, path: str) -> torch.Tensor:
+    for k in path.split("."):
+        module = getattr(module, k)
+    return module
+
+
+class ViT(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device, seed: int = 0):
+        super().__init__()
+        if cfg.n_kv_heads != cfg.n_heads:
+            raise ValueError("ViT attention has n_kv_heads == n_heads")
+        self.cfg = cfg
+        self.n_patches = (cfg.image_size // cfg.patch) ** 2
+        gen = torch.Generator(device=device).manual_seed(seed)
+        d, pd = cfg.d_model, cfg.patch * cfg.patch * 3
+        self.patch = _Dense((pd, d), True, gen, device)
+        self.cls = _Leaf(torch.zeros(1, d, device=device))
+        self.pos = _Leaf(torch.randn(self.n_patches + 1, d, generator=gen,
+                                     device=device) * 0.02)
+        self.blocks = _Blocks(cfg, gen, device)
+        self.lnf = _LayerNorm((d,), device)
+        self.head = _Dense((d, cfg.n_classes), True, gen, device)
+        self._block_leaves = tuple(n for n, _ in
+                                   self.blocks.named_parameters())
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters as the port's ``{path: tensor}`` dict in
+        flatten order (detached views sharing the module's storage)."""
+        named = dict(self.named_parameters())
+        return {n: named[n].detach() for n in sorted(named, key=path_key)}
+
+    def _patchify(self, images: torch.Tensor) -> torch.Tensor:
+        B, S, _, C = images.shape
+        p = self.cfg.patch
+        n = S // p
+        x = images.reshape(B, n, p, n, p, C).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(B, n * n, p * p * C)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> (B, n_classes) logits."""
+        cfg = self.cfg
+        dt = cfg.act_dtype
+        x = cm.dense(self._patchify(images.to(dt)), self.patch.w,
+                     self.patch.b)
+        B = x.shape[0]
+        cls = x.new_zeros(B, 1, cfg.d_model) + self.cls.w.to(dt)
+        x = torch.cat([cls, x], dim=1)
+        x = x + self.pos.w.to(x.dtype)
+        stacked = {n: _get(self.blocks, n).unbind(0)
+                   for n in self._block_leaves}
+        for layer in range(cfg.n_layers):
+            p = {n: v[layer] for n, v in stacked.items()}
+            h = cm.layernorm(x, p["ln1.g.w"], p["ln1.b.w"])
+            x = x + cm.attention(h, p, cfg.n_heads, cfg.hd)
+            h = cm.layernorm(x, p["ln2.g.w"], p["ln2.b.w"])
+            x = x + cm.gelu_mlp(h, p)
+        x = cm.layernorm(x, self.lnf.g.w, self.lnf.b.w)
+        return cm.dense(x[:, 0], self.head.w, self.head.b)
+
+    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
+             ) -> torch.Tensor:
+        """(B,) per-example cross entropy under ``params``."""
+        logits = torch.func.functional_call(self, params, (batch["image"],))
+        return cm.per_example_ce_single(logits, batch["label"])
+
+
+def build(cfg: ArchConfig, *, device, seed: int = 0) -> ViT:
+    if cfg.family != "vit":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port trains ViT")
+    return ViT(cfg, device=device, seed=seed)

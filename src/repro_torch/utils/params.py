@@ -1,0 +1,91 @@
+"""Path-keyed parameter dicts and the :class:`FlatGradView` that backs the
+single flat f32 gradient accumulator.
+
+The port's parameters are one flat ``{path: tensor}`` dict whose paths are
+the reference's dotted ``param_path`` strings (``blocks.attn.wq.w``).  Leaf
+order is the reference's ``jax.tree.flatten`` order on its nested dict,
+i.e. keys sorted at every level (:func:`path_key`), so every flat-buffer
+offset equals the reference's one for one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# the reference pads the flat buffer to a multiple of 256 (every power-of-two
+# data-axis extent up to 256 divides it); the tail stays exactly zero
+FLAT_ALIGN = 256
+
+
+def path_key(path: str) -> Tuple[str, ...]:
+    """Sort key giving ``jax.tree.flatten``'s leaf order on a nested dict:
+    compare the key chains level by level (not the joined strings)."""
+    return tuple(path.split("."))
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, object]:
+    """Nested dict -> ``{dotted path: leaf}`` in flatten order."""
+    if isinstance(tree, dict):
+        out: Dict[str, object] = {}
+        for k in sorted(tree):
+            out.update(flatten_tree(tree[k], f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def params_from_numpy(tree, device) -> Dict[str, torch.Tensor]:
+    """The reference's parameters (a nested dict of numpy arrays) as the
+    port's parameters: a ``{path: f32 tensor}`` dict on ``device``."""
+    return {path: torch.tensor(np.asarray(leaf, np.float32), device=device)
+            for path, leaf in flatten_tree(tree).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatGradView:
+    """Static offsets mapping a parameter dict onto ONE flat f32 buffer of
+    length ``total`` (tail-padded to :data:`FLAT_ALIGN`, tail kept zero)."""
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    total: int
+
+    @classmethod
+    def for_params(cls, params: Dict[str, torch.Tensor]) -> "FlatGradView":
+        names = tuple(sorted(params, key=path_key))
+        shapes = tuple(tuple(params[n].shape) for n in names)
+        sizes = tuple(math.prod(s) for s in shapes)
+        offsets, off = [], 0
+        for s in sizes:
+            offsets.append(off)
+            off += s
+        total = off + ((-off) % FLAT_ALIGN)
+        return cls(names, shapes, sizes, tuple(offsets), total)
+
+    @property
+    def n_params(self) -> int:
+        return sum(self.sizes)
+
+    def zeros(self, device) -> torch.Tensor:
+        return torch.zeros(self.total, dtype=torch.float32, device=device)
+
+    def flatten(self, tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Concatenate the dict's leaves (as f32) into the flat layout."""
+        parts = [tree[n].reshape(-1).float() for n in self.names]
+        pad = self.total - self.n_params
+        if pad:
+            parts.append(parts[0].new_zeros(pad))
+        return torch.cat(parts)
+
+    def segment(self, flat: torch.Tensor, i: int) -> torch.Tensor:
+        """Leaf i's slice of the flat buffer, reshaped (a view)."""
+        o, n = self.offsets[i], self.sizes[i]
+        return flat[o:o + n].view(self.shapes[i])
+
+    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``{path: view}`` of the flat buffer."""
+        return {n: self.segment(flat, i) for i, n in enumerate(self.names)}
