@@ -9,20 +9,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``nvidia-smi --query-gpu=name,power.limit``;
 2. build    — every ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, all
                in parallel, into the git-ignored ``build/kernels``;
-3. kernels  — each kernel against its plain PyTorch version on the card at
-               ViT-Base shapes (bitwise, or within the bound stated below),
-               and its time beside its bound, the plain version's time and a
-               library call's time where one computes the same function;
-4. fit      — ``PrivacySession.fit()``: 3 Poisson DP-SGD steps of
-               full-width ViT-Base with ``masked_fused_stream``; every
-               kernel's launch counter is set to 0 before and read after;
-               then ``masked_pe`` against ``masked_fused_stream`` on one
-               fixed physical batch (at the sized tile, and at a forced
-               smaller tile that pads the batch and carries the accumulator
-               over several tiles), each streaming call's peak memory
-               against the tile-sizing rule's model of it, one streaming
-               call at a batch where the rule binds, and the training CLI
-               with ``masked_pe``.
+3. kernels  — each of the four kernels against its plain PyTorch version on
+               the card at ViT-Base shapes (bitwise, or within the bound
+               stated below), and its time beside its bound, the plain
+               version's time and a library call's time where one computes
+               the same function: ``noisy_sgd_update``,
+               ``clip_accum_inplace``, ``ghost_norm_dense`` (the head's
+               shape on the main path and the block shapes a forced direct
+               path gives it) and the resident ``clip_accum``;
+4. fit      — ``PrivacySession.fit()`` of full-width ViT-Base: 3 Poisson
+               DP-SGD steps with ``masked_fused_stream``, ``masked_ghost``
+               and ``masked_bk`` and 1 with ``masked_fused``; every kernel's
+               launch counter is set to 0 just before each run and read just
+               after, and each run must launch the kernels its engine
+               reaches.  Then, on one fixed physical batch: ``masked_pe``
+               against ``masked_fused_stream`` (at the sized tile, and at a
+               forced smaller tile that pads the batch and carries the
+               accumulator over several tiles), each streaming call's peak
+               memory against the tile-sizing rule's model of it, one
+               streaming call at a batch where the rule binds; ``masked_pe``
+               against ``masked_fused`` (bitwise), ``masked_ghost``,
+               ``masked_bk`` and the streaming engine's ``"ghost"`` norm
+               source; every dense layer's ghost norm through the kernel
+               (forced direct path) against the einsum (forced ghost path);
+               one ``accumulate`` per engine timed against ``nonprivate``
+               (the paper's overhead ratio); and the training CLI with
+               ``masked_pe`` and each new engine.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The full record goes to
@@ -63,6 +75,27 @@ STREAM_SMALL_TILE = 12
 # two counter adds and the two shifts of bits_to_normal
 THREEFRY_UPDATE_F32_OPS = 15
 THREEFRY_I32_OPS = 20 * 3 + 5 * 2 + 2 + 2
+# ghost_norm_dense against its plain version, relative to each n_b: both sum
+# in f32, in other orders (the kernel by 64 x 64 tiles and T slabs of 32)
+GHOST_NORM_REL_TOL = 1e-5
+# ViT-Base's dense shapes (B, T, din, dout) at a physical batch of 32: the
+# head (T = 1 after (B, 768) -> (B, 1, 768)) takes the kernel on the main
+# path; the block denses take it when the direct path is forced
+GHOST_NORM_SHAPES = {"head": (32, 1, 768, 100),
+                     "attn_qkvo": (32, 197, 768, 768),
+                     "mlp_w1": (32, 197, 768, 3072),
+                     "mlp_w2": (32, 197, 3072, 768)}
+# masked_ghost / masked_bk / the "ghost" stream norm source against
+# masked_pe on one physical batch of full-width ViT-Base (bf16 activations):
+# the summed gradient as a share of max |acc| (ghost's reweighted backward
+# rounds coef-scaled bf16 cotangents where masked_pe rounds unscaled ones:
+# 1.3e-2 on the reduced ViT in bf16 on the CPU), the per-example norms
+# relative (the same bf16 dY on both sides: 2e-6 there)
+RECORD_PE_REL_TOL = 5e-2
+RECORD_NORM_REL_TOL = 1e-3
+# every dense layer's ghost norm through the kernel against the einsum path,
+# relative: the same f32 products summed in other orders
+FORCED_PATH_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -255,37 +288,141 @@ def check_clip_accum(view, device, tile, timer):
     return checks, max_err, timing
 
 
+def check_ghost_norm(device, timer, shapes=None):
+    """ghost_norm_dense against its plain version at ViT-Base's dense
+    shapes, bf16 as the tape records them (and f32 at the head's and the
+    first block shape), reruns bit-identical; times per shape."""
+    import torch
+    from repro_torch.kernels import ghost_norm as gn
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    res, max_err = {}, 0.0
+    for label, (B, T, di, do) in (shapes or GHOST_NORM_SHAPES).items():
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and label not in ("head", "attn_qkvo"):
+                continue
+            x = torch.randn(B, T, di, generator=gen, device=device).to(dt)
+            dy = torch.randn(B, T, do, generator=gen, device=device).to(dt)
+            k = gn.ghost_norm_dense(x, dy)
+            p = gn.ghost_norm_dense_plain(x, dy)
+            rel = float(((k - p).abs() / p.abs()).max())
+            err = float((k - p).abs().max())
+            c = {"max_rel_err": rel, "max_abs_err": err,
+                 "rerun_bitwise": same_bits(k, gn.ghost_norm_dense(x, dy))}
+            key = f"{label}_{str(dt).split('.')[-1]}"
+            assert rel <= GHOST_NORM_REL_TOL, (key, c)
+            assert c["rerun_bitwise"], (key, c)
+            max_err = max(max_err, err)
+            if dt == torch.bfloat16:
+                xf, df = x.float(), dy.float()
+                bms, by = bound_ms(2.0 * (x.numel() + dy.numel()) + 4.0 * B,
+                                   2.0 * B * di * do * (T + 1))
+                c.update({
+                    "shape": [B, T, di, do],
+                    "ms": timer(lambda: gn.ghost_norm_dense(x, dy), 20),
+                    "plain_ms": timer(
+                        lambda: gn.ghost_norm_dense_plain(x, dy), 5),
+                    "bound_ms": bms, "bound_by": by,
+                    # one batched product and its sum of squares on f32
+                    # copies of the same inputs: the yardstick
+                    "library_ms": timer(lambda: torch.bmm(
+                        xf.transpose(1, 2), df).square().sum(dim=(1, 2)),
+                        20)})
+                del xf, df
+            res[key] = c
+            del x, dy, k, p
+    return res, max_err
+
+
+def check_clip_accum_resident(view, device, batch, timer):
+    """The resident clip_accum at (batch, flat length), f32 and bf16,
+    bitwise against its plain version; timed in f32 (the per-example grads'
+    dtype on the main path)."""
+    import torch
+    from repro_torch.kernels import clip_accum as ca
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    d, m = view.total, batch
+    norms = torch.rand(m, generator=gen, device=device) * 9.0
+    norms[0] = 0.0
+    mask = (torch.rand(m, generator=gen, device=device) > 0.25).float()
+    mask[0] = 1.0
+    checks, max_err, timing = {}, 0.0, None
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn(m, d, generator=gen, device=device).to(dt)
+        k = ca.clip_accum(g, norms, mask, 4.63)
+        p = ca.clip_accum_plain(g, norms, mask, 4.63)
+        err = float((k - p).abs().max())
+        key = f"m{m}_{str(dt).split('.')[-1]}"
+        checks[key] = {"bitwise": same_bits(k, p), "max_abs_err": err}
+        assert checks[key]["bitwise"], f"clip_accum {key}: {err}"
+        max_err = max(max_err, err)
+        if dt == torch.float32:
+            coef = ca.clip_coefs(norms, mask, 4.63)
+            bms, by = bound_ms((4.0 * m + 4.0) * d, 2.0 * m * d)
+            timing = {
+                "ms": timer(lambda: ca.clip_accum(g, norms, mask, 4.63), 10),
+                "plain_ms": timer(lambda: ca.clip_accum_plain(
+                    g, norms, mask, 4.63), 3),
+                "bound_ms": bms, "bound_by": by,
+                # one PyTorch call computing the same function on the same
+                # inputs (another summation order): the yardstick
+                "library_ms": timer(lambda: coef @ g, 10)}
+        del g, k, p
+    return checks, max_err, timing
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path
 # --------------------------------------------------------------------------
 
-def run_fit(arch, device, train_kw):
-    """3 steps of fit() with masked_fused_stream; returns (session, record,
-    launches)."""
+# the kernels each engine's fit() must launch
+ENGINE_KERNELS = {
+    "masked_fused_stream": ("noisy_sgd_update", "clip_accum_inplace"),
+    "masked_ghost": ("noisy_sgd_update", "ghost_norm_dense"),
+    "masked_bk": ("noisy_sgd_update", "ghost_norm_dense"),
+    "masked_fused": ("noisy_sgd_update", "clip_accum"),
+}
+
+
+def kernel_wrappers():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from repro_torch.kernels import clip_accum as ca
+    from repro_torch.kernels import ghost_norm as gn
+    from repro_torch.kernels import noisy_update as nu
+    return {"noisy_sgd_update": nu.noisy_sgd_update,
+            "clip_accum_inplace": ca.clip_accum_inplace,
+            "ghost_norm_dense": gn.ghost_norm_dense,
+            "clip_accum": ca.clip_accum}
+
+
+def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
+    """fit() with ``engine``; every kernel counter is set to 0 just before
+    and read just after.  Returns (session, record, launches)."""
     import torch
     from repro_torch.core import DPConfig
     from repro_torch.core.session import PrivacySession, TrainConfig
-    from repro_torch.kernels import clip_accum_inplace, noisy_sgd_update
     from repro_torch.privacy import epsilon_for
 
     tc = TrainConfig(**train_kw)
     session = PrivacySession.from_config(
-        arch, DPConfig(engine="masked_fused_stream", clip_norm=4.63), tc,
-        device=device)
+        arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
-    noisy_sgd_update.launches = 0
-    clip_accum_inplace.launches = 0
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     out = session.fit()
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"noisy_sgd_update": noisy_sgd_update.launches,
-                "clip_accum_inplace": clip_accum_inplace.launches}
-    for name, n in launches.items():
-        assert n > 0, f"fit() launched {name} no time"
+    launches = {name: w.launches for name, w in wrappers.items()}
+    # a wrapper counts where it launches its kernel: on the card only
+    for name in ENGINE_KERNELS[engine] if device.type == "cuda" else ():
+        assert launches[name] > 0, f"fit() with {engine} launched {name} " \
+                                   f"no time"
     losses = [h["loss"] for h in out["history"]]
     assert len(losses) == tc.steps and all(map(math.isfinite, losses)), out
     assert all(bool(torch.isfinite(p).all())
@@ -295,10 +432,14 @@ def run_fit(arch, device, train_kw):
                       tc.resolved_delta)
     assert out["final_eps"] == eps, (out["final_eps"], eps)
     assert eps <= tc.target_eps, eps
-    record = {"history": out["history"], "sigma": out["sigma"],
+    record = {"engine": engine, "steps": tc.steps,
+              "history": out["history"], "sigma": out["sigma"],
               "final_eps": out["final_eps"], "fit_seconds": seconds,
+              "examples": sum(h["logical_batch"] for h in out["history"]),
               "examples_per_s": out["examples_per_s"],
               "stream_tile": session.describe()["stream_tile"],
+              "engine_traits": session.describe()["engine_traits"],
+              "launches": launches,
               "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None)}
     return session, record, launches
@@ -451,11 +592,155 @@ def compare_engines(session, tile):
     return res
 
 
-def run_cli(device, arch_args):
-    """The training CLI's flow, in process, with masked_pe."""
+def _fixed_batch(session):
+    """The first physical batch of the dataset, its last quarter masked."""
+    import numpy as np
+    from repro_torch.data.synthetic import dataset_for_config
+    tc = session.train_cfg
+    ds = dataset_for_config(session.model_cfg, tc.n_data, seed=tc.seed)
+    B = tc.physical_batch
+    return session._place(ds.fetch(np.arange(B)),
+                          (np.arange(B) < B - B // 4).astype(np.float32))
+
+
+def compare_record_engines(session):
+    """On one fixed physical batch: masked_fused (bitwise), masked_ghost,
+    masked_bk and the streaming engine's "ghost" norm source against
+    masked_pe, and every dense layer's ghost norm through the kernel
+    (forced direct path) against the einsum (forced ghost path)."""
+    import torch
+    from repro_torch.core import fused, layers
+    from repro_torch.core.clipping import _eps_backward, resolve_engine
+    from repro_torch.utils.params import FlatGradView
+
+    batch, mask = _fixed_batch(session)
+    params, loss_fn = session.state.params, session.loss_fn
+    view = FlatGradView.for_params(params)
+    run = {e: resolve_engine(e) for e in ("masked_pe", "masked_fused",
+                                          "masked_ghost", "masked_bk")}
+    summed, pe_aux = run["masked_pe"](loss_fn, params, batch, mask, 4.63)
+    acc_pe = view.flatten(summed)
+    del summed
+    scale = float(acc_pe.abs().max())
+    pe_norms = pe_aux["per_example_norms"]
+    res = {"max_abs_acc": scale}
+
+    def against_pe(acc, norms):
+        return {"bitwise": same_bits(acc, acc_pe),
+                "max_abs_err": float((acc - acc_pe).abs().max()),
+                "rel_to_max_acc": float((acc - acc_pe).abs().max()) / scale,
+                "rel_l2_err": float((acc - acc_pe).norm() / acc_pe.norm()),
+                "norms_max_rel_err": float(((norms - pe_norms).abs()
+                                            / pe_norms).max())}
+
+    ghost_norms = None
+    for e in ("masked_fused", "masked_ghost", "masked_bk"):
+        summed, aux = run[e](loss_fn, params, batch, mask, 4.63)
+        acc = view.flatten(summed)
+        del summed
+        res[e] = against_pe(acc, aux["per_example_norms"])
+        if e == "masked_ghost":
+            ghost_norms = aux["per_example_norms"]
+        log(f"{e} vs masked_pe: {json.dumps(res[e])}")
+        if e == "masked_fused":
+            assert res[e]["bitwise"], res[e]
+        else:
+            assert res[e]["rel_to_max_acc"] <= RECORD_PE_REL_TOL, res[e]
+            assert res[e]["norms_max_rel_err"] <= RECORD_NORM_REL_TOL, res[e]
+        del acc
+    # the streaming engine with the "ghost" norm source, tile = batch
+    prev = fused.set_stream_norm_source("ghost")
+    try:
+        acc = view.zeros(mask.device)
+        _, aux = resolve_engine("masked_fused_stream")(
+            loss_fn, params, batch, mask, 4.63, acc=acc, view=view,
+            tile=int(mask.shape[0]))
+    finally:
+        fused.set_stream_norm_source(prev)
+    r = against_pe(acc, aux["per_example_norms"])
+    r["norms_bitwise_vs_masked_ghost"] = same_bits(aux["per_example_norms"],
+                                                   ghost_norms)
+    res["masked_fused_stream_ghost"] = r
+    log(f"masked_fused_stream (ghost norms) vs masked_pe: {json.dumps(r)}")
+    assert r["rel_to_max_acc"] <= RECORD_PE_REL_TOL, r
+    assert r["norms_bitwise_vs_masked_ghost"], r
+    del acc, acc_pe
+    # every dense layer: the kernel (direct) against the einsum (ghost)
+    dEps, records, specs, _ = _eps_backward(loss_fn, params, batch)
+    per_layer = {}
+    prev = layers._FORCE_PATH
+    try:
+        for name, spec in specs.items():
+            if spec.kind != "dense":
+                continue
+            out = {}
+            for path in ("direct", "ghost"):
+                layers._FORCE_PATH = path
+                out[path] = layers.per_example_sq_norm(
+                    spec, layers.resolve_record(records, name, spec),
+                    dEps[name])
+            per_layer[name] = float(((out["direct"] - out["ghost"]).abs()
+                                     / out["ghost"].abs()).max())
+    finally:
+        layers._FORCE_PATH = prev
+    res["forced_direct_vs_ghost_max_rel"] = per_layer
+    log(f"ghost norms, kernel vs einsum, per dense layer: "
+        f"{json.dumps(per_layer)}")
+    assert max(per_layer.values()) <= FORCED_PATH_REL_TOL, per_layer
+    del dEps, records
+    return res
+
+
+ACCUMULATE_ENGINES = ("nonprivate", "masked_pe", "masked_fused",
+                      "masked_fused_stream", "masked_ghost", "masked_bk")
+
+
+def time_accumulate(session, iters=3):
+    """One accumulate of the fixed physical batch per engine (host clock
+    around synchronised calls, after one warm-up call), and its peak
+    memory; the ratio to nonprivate is the paper's DP overhead."""
+    import torch
+    from repro_torch.core.engine import (DPConfig, build_accumulate_fn,
+                                         init_state)
+
+    batch, mask = _fixed_batch(session)
+    params, dev = session.state.params, session.device
+    B = int(mask.shape[0])
+    res = {}
+    for e in ACCUMULATE_ENGINES:
+        acc_fn = build_accumulate_fn(session.loss_fn, DPConfig(
+            engine=e, clip_norm=4.63,
+            stream_tile=B if e == "masked_fused_stream" else None))
+        state = init_state(params, session.optimizer, (0, 1))
+        acc_fn(state, batch, mask)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            acc_fn(state, batch, mask)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
+                  "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else None)}
+        del state, acc_fn
+        if cuda:
+            torch.cuda.empty_cache()
+    base = res["nonprivate"]["ms"]
+    for e in ACCUMULATE_ENGINES:
+        res[e]["ratio_to_nonprivate"] = res[e]["ms"] / base
+    return res
+
+
+def run_cli(device, arch_args, engine="masked_pe"):
+    """The training CLI's flow, in process, one step."""
     import math as _m
     from repro_torch.launch import train
-    out = train.main([*arch_args, "--engine", "masked_pe", "--steps", "1",
+    out = train.main([*arch_args, "--engine", engine, "--steps", "1",
                       "--device", str(device)])
     assert out["history"] and all(_m.isfinite(h["loss"])
                                   for h in out["history"]), out
@@ -514,20 +799,51 @@ def main() -> int:
     log(f"noisy_sgd_update: {json.dumps(nu_checks)} {json.dumps(nu_time)}")
     ca_checks, ca_err, ca_time = check_clip_accum(view, device, tile, cuda_ms)
     log(f"clip_accum_inplace: {json.dumps(ca_checks)} {json.dumps(ca_time)}")
-    record["kernel_checks"] = {"noisy_sgd_update": nu_checks,
-                               "clip_accum_inplace": ca_checks}
     torch.cuda.empty_cache()
-    # 4. fit() at full width, then the engines on one batch, then the CLI
-    session, record["fit"], launches = run_fit("vit-base", device, train_kw)
-    log(f"fit: {json.dumps(record['fit'])} launches {launches}")
-    record["engines"] = compare_engines(session, record["fit"]["stream_tile"]
-                                        or tile)
-    log(f"masked_pe vs masked_fused_stream: {json.dumps(record['engines'])}")
+    gn_checks, gn_err = check_ghost_norm(device, cuda_ms)
+    log(f"ghost_norm_dense: {json.dumps(gn_checks)}")
+    cr_checks, cr_err, cr_time = check_clip_accum_resident(
+        view, device, train_kw["physical_batch"], cuda_ms)
+    log(f"clip_accum: {json.dumps(cr_checks)} {json.dumps(cr_time)}")
+    record["kernel_checks"] = {"noisy_sgd_update": nu_checks,
+                               "clip_accum_inplace": ca_checks,
+                               "ghost_norm_dense": gn_checks,
+                               "clip_accum": cr_checks}
+    torch.cuda.empty_cache()
+    # 4. fit() at full width per engine, each with its counters set to 0
+    # just before and read just after; then the engines on one batch, the
+    # accumulate times and the CLI
+    record["fit"] = {}
+    session = None
+    for engine, steps in (("masked_fused_stream", 3), ("masked_ghost", 3),
+                          ("masked_bk", 3), ("masked_fused", 1)):
+        del session
+        torch.cuda.empty_cache()
+        session, rec, _ = run_fit("vit-base", device,
+                                  dict(train_kw, steps=steps), engine)
+        record["fit"][engine] = rec
+        log(f"fit {engine}: {json.dumps(rec)}")
+        if engine == "masked_fused_stream":
+            record["engines"] = compare_engines(
+                session, rec["stream_tile"] or tile)
+            log(f"masked_pe vs masked_fused_stream: "
+                f"{json.dumps(record['engines'])}")
+    record["record_engines"] = compare_record_engines(session)
+    torch.cuda.empty_cache()
+    record["accumulate"] = time_accumulate(session)
+    log(f"accumulate of one physical batch of "
+        f"{train_kw['physical_batch']}, ms and ratio to nonprivate: "
+        f"{json.dumps(record['accumulate'])}")
     del session
     torch.cuda.empty_cache()
-    record["cli_masked_pe"] = run_cli(device, ["--arch", "vit-base"])
-    log(f"cli masked_pe: {json.dumps(record['cli_masked_pe'])}")
-    # 5. the kernels line
+    record["cli"] = {}
+    for engine in ("masked_pe", "masked_ghost", "masked_bk", "masked_fused"):
+        record["cli"][engine] = run_cli(device, ["--arch", "vit-base"],
+                                        engine)
+        log(f"cli {engine}: {json.dumps(record['cli'][engine])}")
+    # 5. the kernels line: launches summed over the fit() runs
+    launches = {k: sum(r["launches"][k] for r in record["fit"].values())
+                for k in kernel_wrappers()}
     kernels = [
         {"name": "noisy_sgd_update", "route": "cuda",
          "source": "src/repro_torch/csrc/noisy_update.cu",
@@ -539,6 +855,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/clip_accum.py:125",
          "launches": launches["clip_accum_inplace"], "max_abs_err": ca_err,
          **ca_time},
+        {"name": "ghost_norm_dense", "route": "cuda",
+         "source": "src/repro_torch/csrc/ghost_norm.cu",
+         "replaces": "src/repro/kernels/ghost_norm.py:52",
+         "launches": launches["ghost_norm_dense"], "max_abs_err": gn_err,
+         **{k: gn_checks["head_bfloat16"][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "clip_accum", "route": "cuda",
+         "source": "src/repro_torch/csrc/clip_accum.cu",
+         "replaces": "src/repro/kernels/clip_accum.py:72",
+         "launches": launches["clip_accum"], "max_abs_err": cr_err,
+         **cr_time},
     ]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start

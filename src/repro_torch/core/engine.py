@@ -32,7 +32,9 @@ class DPConfig:
     clip_norm: float = 1.0
     noise_multiplier: float = 1.0        # sigma
     expected_batch_size: float = 64.0    # L = q * N
-    engine: str = "masked_pe"            # masked_pe | masked_fused_stream | nonprivate
+    # masked_pe | masked_fused | masked_fused_stream | masked_ghost |
+    # masked_bk | nonprivate
+    engine: str = "masked_pe"
     stream_tile: Optional[int] = None    # streaming: examples per tile m;
     #                                      None = sized from free memory
 

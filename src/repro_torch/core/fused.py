@@ -1,6 +1,14 @@
-"""The streaming fused clipping engine, ``masked_fused_stream``.
+"""The fused clipping engines, ``masked_fused`` and ``masked_fused_stream``.
 
-It never materialises the O(B·params) per-example gradient tree.  The
+``masked_fused`` takes the per-example grads exactly as ``masked_pe`` does
+(``vmap(grad)`` at the whole physical batch, the same norms and
+coefficients), lays them out as ONE (B, D) matrix in the flat accumulator
+layout and hands the clipped masked sum to one launch of the ``clip_accum``
+kernel.  The kernel folds the rows strictly left from +0, as ``masked_pe``
+does, so the two engines are equal bit for bit.  Its peak memory is
+O(B·params): the whole per-example tree exists when the kernel runs.
+
+``masked_fused_stream`` never materialises that tree.  The
 physical batch is cut into tiles of m examples; for each tile the engine
 takes the tile's per-example grads (``vmap(grad)``, the ``masked_pe``
 plumbing), concatenates them into an (m, D) tile in the flat accumulator
@@ -10,8 +18,12 @@ memory is O(m·params + params); ``m`` comes from ``DPConfig.stream_tile`` or
 from :func:`~repro_torch.launch.costmodel.stream_tile_size` against the
 device's free memory.
 
-Norms come from each tile's own grads (the reference's ``"pe"`` norm
-source; its ``"ghost"`` source arrives with the ghost-norm kernel).
+Norms come from each tile's own grads (the ``"pe"`` norm source, the
+default) or, under :func:`set_stream_norm_source("ghost")
+<set_stream_norm_source>`, from a full-batch ghost-norm pass first (no
+per-example grads in the norm pass, a second backward for the tiles): the
+literal two-pass form, which agrees with ``masked_pe`` to ghost-norm
+tolerance, like ``masked_ghost``.
 
 The reference vmaps an m=1 tile at width 2, because XLA gives the row of a
 width-1 vmap other bits than the same row in a wider one and its bitwise
@@ -30,10 +42,42 @@ from typing import Callable, Optional
 
 import torch
 
-from ..kernels import flat_clip_accum
+from ..kernels import flat_clip_accum, tree_clip_accum
 from ..launch.costmodel import free_memory_bytes, stream_tile_size
 from ..utils.params import FlatGradView
-from .clipping import clip_coef, per_example_grads_and_sq, register_engine
+from .clipping import (clip_coef, ghost_norms, per_example_grads_and_sq,
+                       register_engine)
+
+
+@register_engine("masked_fused", materializes_pe=True)
+def fused_clipped_grads(loss_fn: Callable, params, batch, mask,
+                        clip_norm: float):
+    grads, sq = per_example_grads_and_sq(loss_fn, params, batch)
+    # the kernel recomputes mask * min(1, C/norm) itself; coef is aux
+    coef, norms = clip_coef(sq, mask, clip_norm)
+    summed = tree_clip_accum(grads, norms, mask.float(), clip_norm,
+                             FlatGradView.for_params(params))
+    return summed, {"per_example_norms": norms, "clip_coef": coef}
+
+
+# where the streaming engine's per-example norms come from:
+#   "pe"    — each tile's own vmapped grads (one backward in all; the
+#             masked_pe numerics), the default;
+#   "ghost" — a full-batch ghost-norm pass first, then the tiled
+#             clip-and-accumulate backward with those coefficients
+_NORM_SOURCES = ("pe", "ghost")
+_stream_norm_source = "pe"
+
+
+def set_stream_norm_source(source: str) -> str:
+    """Switch the streaming engine's norm pass; returns the previous value
+    (restore it in a ``finally:``)."""
+    global _stream_norm_source
+    if source not in _NORM_SOURCES:
+        raise ValueError(f"norm source {source!r}; expected {_NORM_SOURCES}")
+    prev = _stream_norm_source
+    _stream_norm_source = source
+    return prev
 
 
 @register_engine("masked_fused_stream", streaming=True)
@@ -63,6 +107,11 @@ def streaming_clipped_grads(loss_fn: Callable, params, batch, mask,
     if pad:
         batch = {k: torch.cat([v] + [v[:1]] * pad) for k, v in batch.items()}
         mask = torch.cat([mask, mask.new_zeros(pad)])
+    ghost = _stream_norm_source == "ghost"
+    if ghost:
+        # pass 1: full-batch per-example norms with NO per-example grads
+        sq_all, _ = ghost_norms(loss_fn, params, batch)
+        pre_coef, pre_norms = clip_coef(sq_all, mask, clip_norm)
     pad_d = view.total - view.n_params
     norms_all, coefs_all = [], []
     for start in range(0, B + pad, m):
@@ -70,7 +119,10 @@ def streaming_clipped_grads(loss_fn: Callable, params, batch, mask,
         grads, sq = per_example_grads_and_sq(
             loss_fn, params, {k: v[sl] for k, v in batch.items()})
         mk = mask[sl]
-        coef, norms = clip_coef(sq, mk, clip_norm)
+        if ghost:
+            coef, norms = pre_coef[sl], pre_norms[sl]
+        else:
+            coef, norms = clip_coef(sq, mk, clip_norm)
         # the (m, D) tile in the accumulator's layout: the TILE is padded
         # over the alignment tail, the accumulator never is
         parts = [grads.pop(n).reshape(m, -1) for n in view.names]

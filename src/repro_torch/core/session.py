@@ -36,6 +36,7 @@ from ..optim import Optimizer, constant, cosine, linear_warmup_cosine, sgd
 from ..privacy import PrivacyAccountant, calibrate_sigma
 from ..privacy import rdp as rdp_mod
 from ..utils.device import resolve_device
+from . import clipping
 from .engine import (DPConfig, TrainState, build_accumulate_fn,
                      build_eval_fn, build_update_fn, init_state)
 
@@ -259,9 +260,13 @@ class PrivacySession:
                 acc = acc + per_step
                 traj.append(round(rdp_mod.rdp_to_eps(
                     acc, tc.resolved_delta), 4))
+        engine = clipping.resolve_engine(dp.engine) if dp.private else None
         return {
             "arch": self.model_cfg.name,
             "engine": dp.engine,
+            "engine_traits": {
+                t: bool(getattr(engine, t, False))
+                for t in ("materializes_pe", "record_based", "streaming")},
             "sigma": dp.noise_multiplier,
             "clip_norm": dp.clip_norm,
             "sampler": tc.sampler,

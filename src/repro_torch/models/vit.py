@@ -4,19 +4,25 @@ CIFAR-100 head), as an ``nn.Module``.
 Parameter names are the reference's ``param_path`` strings
 (``patch.w``, ``blocks.attn.wq.w``, ``lnf.g.w`` ...).  The transformer
 blocks keep the reference's stacked layout: every ``blocks.*`` leaf has a
-leading ``n_layers`` axis, unbound once per forward and looped in Python.
+leading ``n_layers`` axis, unbound once per forward and looped in Python
+(:func:`~repro_torch.core.tape.scan_blocks`, under tape scope ``blocks``).
 Call the model functionally (:meth:`ViT.loss` uses
 ``torch.func.functional_call``), so ``torch.func.vmap(torch.func.grad(...))``
-gives per-example gradients.
+gives per-example gradients.  Every parameterised op goes through a tape
+primitive, as the reference's ``logits`` does: ``patch`` and ``head`` are
+``dense``, ``cls`` and ``pos`` are ``bias``, each layernorm is ``scale`` then
+``bias``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..core import layers as L
+from ..core.tape import Tape, scan_blocks
 from ..utils.params import path_key
 from . import common as cm
 
@@ -113,31 +119,45 @@ class ViT(nn.Module):
         x = images.reshape(B, n, p, n, p, C).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(B, n * n, p * p * C)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """NHWC images -> (B, n_classes) logits."""
+    def forward(self, images: torch.Tensor,
+                tape: Optional[Tape] = None) -> torch.Tensor:
+        """NHWC images -> (B, n_classes) logits; ``tape`` defaults to a
+        plain one."""
         cfg = self.cfg
+        tape = Tape() if tape is None else tape
         dt = cfg.act_dtype
-        x = cm.dense(self._patchify(images.to(dt)), self.patch.w,
-                     self.patch.b)
+        x = L.dense(tape, "patch", self._patchify(images.to(dt)),
+                    self.patch.w, self.patch.b, param_path="patch")
         B = x.shape[0]
-        cls = x.new_zeros(B, 1, cfg.d_model) + self.cls.w.to(dt)
+        cls = L.bias(tape, "cls", x.new_zeros(B, 1, cfg.d_model), self.cls.w,
+                     param_path="cls.w")
         x = torch.cat([cls, x], dim=1)
-        x = x + self.pos.w.to(x.dtype)
-        stacked = {n: _get(self.blocks, n).unbind(0)
-                   for n in self._block_leaves}
-        for layer in range(cfg.n_layers):
-            p = {n: v[layer] for n, v in stacked.items()}
-            h = cm.layernorm(x, p["ln1.g.w"], p["ln1.b.w"])
-            x = x + cm.attention(h, p, cfg.n_heads, cfg.hd)
-            h = cm.layernorm(x, p["ln2.g.w"], p["ln2.b.w"])
-            x = x + cm.gelu_mlp(h, p)
-        x = cm.layernorm(x, self.lnf.g.w, self.lnf.b.w)
-        return cm.dense(x[:, 0], self.head.w, self.head.b)
+        x = L.bias(tape, "pos", x, self.pos.w, param_path="pos.w")
+
+        def body(sub, p, x):
+            h = cm.layernorm(sub, "ln1", x, cm.sub_params(p, "ln1"),
+                             path="blocks.ln1")
+            x = x + cm.attention(sub, "attn", "blocks.attn",
+                                 cm.sub_params(p, "attn"), h, cfg.n_heads,
+                                 cfg.hd)
+            h = cm.layernorm(sub, "ln2", x, cm.sub_params(p, "ln2"),
+                             path="blocks.ln2")
+            return x + cm.gelu_mlp(sub, "mlp", "blocks.mlp",
+                                   cm.sub_params(p, "mlp"), h)
+
+        stacked = {n: _get(self.blocks, n) for n in self._block_leaves}
+        x = scan_blocks(tape, "blocks", body, stacked, x, cfg.n_layers)
+        x = cm.layernorm(tape, "lnf", x, {"g.w": self.lnf.g.w,
+                                          "b.w": self.lnf.b.w}, path="lnf")
+        return L.dense(tape, "head", x[:, 0], self.head.w, self.head.b,
+                       param_path="head")
 
     def loss(self, params: Dict[str, torch.Tensor], batch: dict,
-             ) -> torch.Tensor:
-        """(B,) per-example cross entropy under ``params``."""
-        logits = torch.func.functional_call(self, params, (batch["image"],))
+             tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B,) per-example cross entropy under ``params``; ``tape``
+        defaults to a plain one (the record-mode engines pass theirs)."""
+        logits = torch.func.functional_call(self, params, (batch["image"],),
+                                            {"tape": tape})
         return cm.per_example_ce_single(logits, batch["label"])
 
 

@@ -44,6 +44,28 @@ def params_from_numpy(tree, device) -> Dict[str, torch.Tensor]:
             for path, leaf in flatten_tree(tree).items()}
 
 
+def grads_into_tree(flat_grads: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """``{path: f32 grad}`` shaped like ``params``, in its order; a path no
+    entry covers gets f32 zeros (reported by :func:`missing_paths`, not
+    silently trained)."""
+    out = {}
+    for path, p in params.items():
+        g = flat_grads.get(path)
+        out[path] = (torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) if g is None
+                     else g.reshape(p.shape).float())
+    return out
+
+
+def missing_paths(flat_grads: Dict[str, torch.Tensor],
+                  params: Dict[str, torch.Tensor]):
+    """Paths of ``params`` that no book-keeping gradient covers (should be
+    empty)."""
+    return sorted(set(params) - set(flat_grads))
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatGradView:
     """Static offsets mapping a parameter dict onto ONE flat f32 buffer of

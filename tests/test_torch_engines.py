@@ -168,5 +168,6 @@ def test_accumulate_streaming_adds_into_the_carry():
 def test_unknown_engine_lists_the_registry():
     with pytest.raises(KeyError, match="masked_fused_stream"):
         DPConfig(engine="nope").validate()
-    assert set(clipping.available_engines()) == {"pe", "masked_pe",
-                                                 "masked_fused_stream"}
+    assert set(clipping.available_engines()) == {
+        "pe", "masked_pe", "masked_fused", "masked_fused_stream",
+        "masked_ghost", "masked_bk"}

@@ -10,6 +10,7 @@ largest parameter (per-example grads differ at f32 rounding, see
 test_torch_vit.py; the update adds 1 ULP per contracted op, see
 test_torch_kernels.py); logged losses within 1e-3.
 """
+import json
 import os
 import subprocess
 import sys
@@ -41,7 +42,9 @@ def _reference_noise(ref, steps):
     return out
 
 
-@pytest.mark.parametrize("engine", ["masked_pe", "masked_fused_stream"])
+@pytest.mark.parametrize("engine", ["masked_pe", "masked_fused_stream",
+                                    "masked_fused", "masked_ghost",
+                                    "masked_bk"])
 def test_fit_matches_reference(engine):
     ref = RefSession.from_config(
         "vit-base", RefDPConfig(engine=engine, clip_norm=1.0, stream_tile=4),
@@ -111,6 +114,21 @@ def test_nonprivate_fit_charges_no_privacy():
 def test_fit_refuses_more_steps_than_calibrated():
     with pytest.raises(ValueError, match="calibrated"):
         _tiny().fit(steps=3)
+
+
+@pytest.mark.parametrize("engine", ["masked_fused", "masked_ghost",
+                                    "masked_bk"])
+def test_cli_trains_with_the_new_engines(engine, capsys):
+    from repro_torch.launch import train
+    out = train.main(["--smoke", "--device", "cpu", "--steps", "1",
+                      "--n-data", "16", "--physical", "4", "--q", "0.25",
+                      "--engine", engine, "--describe"])
+    assert out["history"] and out["final_eps"] > 0
+    described = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert described["engine"] == engine
+    assert described["engine_traits"] == {
+        "materializes_pe": engine == "masked_fused",
+        "record_based": engine != "masked_fused", "streaming": False}
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
