@@ -52,9 +52,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# the card's published peaks (NVIDIA H100 SXM data sheet); the int32 rate is
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper white paper)
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense rates); the
+# int32 rate is 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost (Hopper
+# white paper).  A product of two bf16 values is exact in f32, so bf16
+# operands multiplied with f32 accumulation count at the tensor cores' bf16
+# rate; f32 operands at the rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = 16.7e12
 
@@ -86,12 +90,25 @@ GHOST_NORM_SHAPES = {"head": (32, 1, 768, 100),
                      "mlp_w1": (32, 197, 768, 3072),
                      "mlp_w2": (32, 197, 3072, 768)}
 # masked_ghost / masked_bk / the "ghost" stream norm source against
-# masked_pe on one physical batch of full-width ViT-Base (bf16 activations):
-# the summed gradient as a share of max |acc| (ghost's reweighted backward
-# rounds coef-scaled bf16 cotangents where masked_pe rounds unscaled ones:
-# 1.3e-2 on the reduced ViT in bf16 on the CPU), the per-example norms
-# relative (the same bf16 dY on both sides: 2e-6 there)
-RECORD_PE_REL_TOL = 5e-2
+# masked_pe on one physical batch of full-width ViT-Base (bf16 activations),
+# the summed gradient (a) as a share of max |acc| and (b) per leaf, as a
+# share of that leaf's own max |acc|, floored at LEAF_FLOOR of max |acc| so
+# a leaf whose true gradient is zero (the key bias: softmax ignores it) is
+# held to rounding noise; a leaf that is zero or wrong shows as O(1).
+# masked_ghost: its reweighted backward rounds coef-scaled bf16 cotangents
+# where masked_pe rounds unscaled ones (1.3e-2 of max |acc| and 1.3e-2 worst
+# leaf on the reduced ViT in bf16 on the CPU; 1.9e-2 of max |acc| on the
+# card).  masked_bk: its sums are f32 where masked_pe rounds the bias and
+# gain grads of each example to bf16 (1.6e-4 and 3.9e-3, one bf16 step, on
+# the CPU; 4.7e-4 of max |acc| on the card).  The "ghost" stream source:
+# masked_pe's own grads under coefficients from other norms (5.9e-7 on the
+# card).  The per-example norms relative: the same bf16 dY on both sides
+# (2e-6 on the CPU, 1.3e-6 on the card)
+RECORD_PE_REL_TOL = {"masked_ghost": 5e-2, "masked_bk": 5e-3,
+                     "masked_fused_stream_ghost": 1e-4}
+RECORD_LEAF_REL_TOL = {"masked_ghost": 1e-1, "masked_bk": 2e-2,
+                       "masked_fused_stream_ghost": 1e-3}
+LEAF_FLOOR = 1e-3
 RECORD_NORM_REL_TOL = 1e-3
 # every dense layer's ghost norm through the kernel against the einsum path,
 # relative: the same f32 products summed in other orders
@@ -118,10 +135,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0,
+             bf16_ops: float = 0.0):
     """(least time in ms, "bytes" | "operations") for the work."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S
+    t_ops = (f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S
+             + bf16_ops / BF16_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -315,8 +334,11 @@ def check_ghost_norm(device, timer, shapes=None):
             max_err = max(max_err, err)
             if dt == torch.bfloat16:
                 xf, df = x.float(), dy.float()
+                # the product's multiply-adds on bf16 operands at the bf16
+                # rate, the f32 square-and-add of each product entry at f32's
                 bms, by = bound_ms(2.0 * (x.numel() + dy.numel()) + 4.0 * B,
-                                   2.0 * B * di * do * (T + 1))
+                                   f32_ops=2.0 * B * di * do,
+                                   bf16_ops=2.0 * B * di * do * T)
                 c.update({
                     "shape": [B, T, di, do],
                     "ms": timer(lambda: gn.ghost_norm_dense(x, dy), 20),
@@ -626,16 +648,29 @@ def compare_record_engines(session):
     res = {"max_abs_acc": scale}
 
     def against_pe(acc, norms):
+        leaf = {}
+        for nm, o, n in zip(view.names, view.offsets, view.sizes):
+            a, p = acc[o:o + n], acc_pe[o:o + n]
+            leaf[nm] = float((a - p).abs().max()) / max(
+                float(p.abs().max()), LEAF_FLOOR * scale)
+        worst = max(leaf, key=leaf.get)
         return {"bitwise": same_bits(acc, acc_pe),
                 "max_abs_err": float((acc - acc_pe).abs().max()),
                 "rel_to_max_acc": float((acc - acc_pe).abs().max()) / scale,
                 "rel_l2_err": float((acc - acc_pe).norm() / acc_pe.norm()),
+                "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
                 "norms_max_rel_err": float(((norms - pe_norms).abs()
                                             / pe_norms).max())}
 
+    def hold(key, r):
+        assert r["rel_to_max_acc"] <= RECORD_PE_REL_TOL[key], (key, r)
+        assert r["worst_leaf_rel_err"] <= RECORD_LEAF_REL_TOL[key], (key, r)
+        assert r["norms_max_rel_err"] <= RECORD_NORM_REL_TOL, (key, r)
+
     ghost_norms = None
     for e in ("masked_fused", "masked_ghost", "masked_bk"):
-        summed, aux = run[e](loss_fn, params, batch, mask, 4.63)
+        kw = {"check_coverage": True} if e == "masked_bk" else {}
+        summed, aux = run[e](loss_fn, params, batch, mask, 4.63, **kw)
         acc = view.flatten(summed)
         del summed
         res[e] = against_pe(acc, aux["per_example_norms"])
@@ -645,8 +680,7 @@ def compare_record_engines(session):
         if e == "masked_fused":
             assert res[e]["bitwise"], res[e]
         else:
-            assert res[e]["rel_to_max_acc"] <= RECORD_PE_REL_TOL, res[e]
-            assert res[e]["norms_max_rel_err"] <= RECORD_NORM_REL_TOL, res[e]
+            hold(e, res[e])
         del acc
     # the streaming engine with the "ghost" norm source, tile = batch
     prev = fused.set_stream_norm_source("ghost")
@@ -662,7 +696,7 @@ def compare_record_engines(session):
                                                    ghost_norms)
     res["masked_fused_stream_ghost"] = r
     log(f"masked_fused_stream (ghost norms) vs masked_pe: {json.dumps(r)}")
-    assert r["rel_to_max_acc"] <= RECORD_PE_REL_TOL, r
+    hold("masked_fused_stream_ghost", r)
     assert r["norms_bitwise_vs_masked_ghost"], r
     del acc, acc_pe
     # every dense layer: the kernel (direct) against the einsum (ghost)

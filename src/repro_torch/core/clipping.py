@@ -146,8 +146,8 @@ def _eps_backward(loss_fn: Callable, params, batch):
     grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True)
     grads = iter(torch.zeros_like(leaf) if g is None else g
                  for leaf, g in zip(leaves, grads))
-    # a layer stack's per-layer dY are stacked on a leading axis
-    dEps = {n: torch.stack([next(grads) for _ in e]) if isinstance(e, list)
+    # a layer stack's dY stay a list of the per-layer tensors, as its records
+    dEps = {n: [next(grads) for _ in e] if isinstance(e, list)
             else next(grads) for n, e in tape.eps.items()}
     return dEps, tape.records, tape.specs, losses.detach()
 

@@ -103,24 +103,22 @@ def conv1d_depthwise(tape: Tape, name: str, x, w, *, param_path: str):
 # ---------------------------------------------------------------------------
 
 def _fold(spec: LayerSpec, rec: Dict, dY):
-    """Normalise (record, dY) from (stack..., B, inner...) to canonical
-    stacked shapes: 'uses' axes (one parameter re-used each step) move after
-    the batch axis, where the companions treat them as extra token axes
-    (exact cross-use inner products); the remaining leading axes are
-    'layers' axes over which norms add and grads stack.  Returns (rec, dY,
-    number of layer axes)."""
-    stack = spec.stack
-    n = len(stack)
-    layer_ax = [i for i, s in enumerate(stack) if s == "layers"]
-    use_ax = [i for i, s in enumerate(stack) if s == "uses"]
-    if not use_ax:
-        return rec, dY, len(layer_ax)
+    """Normalise (record, dY) for the companions.  A 'uses' axis (one
+    parameter re-used each step) is stacked and moved after the batch axis,
+    where the companions treat it as an extra token axis (exact cross-use
+    inner products).  A 'layers' axis stays as it is, a list of per-layer
+    tensors (or a leading tensor axis): norms add over it and grads stack on
+    it.  Stacks do not nest.  Returns (rec, dY, number of layer axes)."""
+    if len(spec.stack) > 1:
+        raise ValueError(f"nested stack {spec.stack}: stacks do not nest")
+    if spec.stack != ("uses",):
+        return rec, dY, len(spec.stack)
 
     def fix(a):
-        inner = list(range(n + 1, a.dim()))
-        return a.permute(layer_ax + [n] + use_ax + inner)
+        a = torch.stack(a) if isinstance(a, (list, tuple)) else a
+        return a.movedim(0, 1)
 
-    return {k: fix(v) for k, v in rec.items()}, fix(dY), len(layer_ax)
+    return {k: fix(v) for k, v in rec.items()}, fix(dY), 0
 
 
 def _as_btd(a):
@@ -131,15 +129,11 @@ def _as_btd(a):
 
 
 def _map_layers(fn, args, n_layer_axes: int):
-    """Apply ``fn`` to each layer of the leading layer axes in turn (one
-    layer's temporaries live at a time) and sum the (B,) results over
-    them."""
+    """Apply ``fn`` to each layer of the layer axis in turn (one layer's
+    temporaries live at a time) and sum the (B,) results over it."""
     if n_layer_axes == 0:
         return fn(*args)
-    args = tuple(a.reshape((-1,) + tuple(a.shape[n_layer_axes:]))
-                 for a in args)
-    return torch.stack([fn(*(a[i] for a in args))
-                        for i in range(args[0].shape[0])]).sum(dim=0)
+    return torch.stack([fn(*a) for a in zip(*args)]).sum(dim=0)
 
 
 def _sum_except(a, keep_trailing: int, start: int = 1):
@@ -238,67 +232,50 @@ def per_example_sq_norm(spec: LayerSpec, rec: Dict, dY) -> torch.Tensor:
 # book-keeping: clipped summed grads straight from the tape
 # ---------------------------------------------------------------------------
 
-def _coef_mul(a, coef, n_layer_axes: int):
-    """Multiply (layers..., B, ...) by the per-example coef (B,)."""
-    shape = (1,) * n_layer_axes + (coef.shape[0],) \
-        + (1,) * (a.dim() - n_layer_axes - 1)
-    return a * coef.reshape(shape).to(a.dtype)
+def _coef_mul(a, coef):
+    """Multiply (B, ...) by the per-example coef (B,)."""
+    return a * coef.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
 
 
 def bk_grads(spec: LayerSpec, rec: Dict, dY, coef) -> Dict[str, torch.Tensor]:
     """sum_b coef_b * per-example-grad_b, without per-example parameter
-    gradients.  Keys are ``<param_path>`` (dense: ``.w`` and ``.b``).  The
-    sums over examples are products and reductions, not the strict fold of
+    gradients.  Keys are ``<param_path>`` (dense: ``.w`` and ``.b``); on a
+    layer stack each grad gains the leading layer axis.  The sums over
+    examples are products and reductions, not the strict fold of
     ``masked_pe``, so the result agrees with it to f32 rounding."""
     rec, dY, nl = _fold(spec, rec, dY)
-    dYc = _coef_mul(dY.float(), coef, nl)
-    out = {}
-    L = "lmn"[:nl]
+    if nl == 0:
+        return _bk_grads_one(spec, rec, dY, coef)
+    per = [_bk_grads_one(spec, dict(zip(rec, r)), d, coef)
+           for *r, d in zip(*rec.values(), dY)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def _bk_grads_one(spec: LayerSpec, rec: Dict, dY, coef):
+    """:func:`bk_grads` of one layer: ``rec`` and ``dY`` lead with the batch
+    axis."""
+    dYc = _coef_mul(dY.float(), coef)
     if spec.kind == "dense":
         x = rec["x"].float()
-        xb = x.reshape(tuple(x.shape[:nl + 1]) + (-1, x.shape[-1]))
-        db = dYc.reshape(tuple(dYc.shape[:nl + 1]) + (-1, dYc.shape[-1]))
-        out[spec.param_path + ".w"] = torch.einsum(
-            f"{L}bti,{L}bto->{L}io", xb, db)
+        xb = x.reshape(x.shape[0], -1, x.shape[-1])
+        db = dYc.reshape(dYc.shape[0], -1, dYc.shape[-1])
+        out = {spec.param_path + ".w": torch.einsum("bti,bto->io", xb, db)}
         if spec.get("has_bias", False):
-            out[spec.param_path + ".b"] = db.sum(dim=(nl, nl + 1))
+            out[spec.param_path + ".b"] = db.sum(dim=(0, 1))
         return out
     if spec.kind == "embed":
-        V = spec.get("vocab")
-        ids = rec["ids"].reshape(tuple(rec["ids"].shape[:nl]) + (-1,))
-        db = dYc.reshape(tuple(dYc.shape[:nl]) + (-1, dYc.shape[-1]))
-
-        def scat(i, d):
-            return torch.zeros(V, d.shape[-1], dtype=torch.float32,
-                               device=d.device).index_add_(0, i.long(), d)
-        if nl == 0:
-            g = scat(ids, db)
-        else:
-            ids_f = ids.reshape((-1,) + tuple(ids.shape[nl:]))
-            db_f = db.reshape((-1,) + tuple(db.shape[nl:]))
-            g = torch.stack([scat(i, d) for i, d in zip(ids_f, db_f)])
-            g = g.reshape(tuple(dYc.shape[:nl]) + (V, db.shape[-1]))
-        out[spec.param_path] = g
-        return out
+        d = dYc.shape[-1]
+        g = torch.zeros(spec.get("vocab"), d, dtype=torch.float32,
+                        device=dYc.device).index_add_(
+            0, rec["ids"].reshape(-1).long(), dYc.reshape(-1, d))
+        return {spec.param_path: g}
     if spec.kind == "scale":
-        gd = spec.get("gdim", 1)
-        out[spec.param_path] = _sum_except(rec["x"].float() * dYc, gd,
-                                           start=nl)
-        return out
+        return {spec.param_path: _sum_except(rec["x"].float() * dYc,
+                                             spec.get("gdim", 1), start=0)}
     if spec.kind == "bias":
-        bd = spec.get("bdim", 1)
-        out[spec.param_path] = _sum_except(dYc, bd, start=nl)
-        return out
+        return {spec.param_path: _sum_except(dYc, spec.get("bdim", 1),
+                                             start=0)}
     if spec.kind == "conv1d":
-        k = spec.get("width")
-        if nl == 0:
-            g = _pe_grad_conv1d(rec["x"], dYc, k).sum(dim=0)
-        else:
-            xf = rec["x"].reshape((-1,) + tuple(rec["x"].shape[nl:]))
-            df = dYc.reshape((-1,) + tuple(dYc.shape[nl:]))
-            g = torch.stack([_pe_grad_conv1d(a, d, k).sum(dim=0)
-                             for a, d in zip(xf, df)]).reshape(
-                tuple(dYc.shape[:nl]) + (k, dYc.shape[-1]))
-        out[spec.param_path] = g
-        return out
+        return {spec.param_path: _pe_grad_conv1d(
+            rec["x"], dYc, spec.get("width")).sum(dim=0)}
     raise ValueError(spec.kind)

@@ -21,10 +21,14 @@ reference, so every dY reaches the norm math rounded to it (bf16 on
 ViT-Base).
 
 Records made inside :func:`scan_blocks` (the layer-stacked transformer
-blocks) carry a leading stack axis: ``stack=('layers',)`` when each step has
-its own parameters (norms add over the axis), ``('uses',)`` for names under
+blocks) carry a stack axis: ``stack=('layers',)`` when each step has its own
+parameters (norms add over the axis), ``('uses',)`` for names under
 ``shared/`` whose parameter is re-used every step (the axis is folded into
-the sequence axis so cross-use inner products are exact).
+the sequence axis so cross-use inner products are exact).  The axis is a
+Python list of the per-layer tensors, for records and dY alike: nothing is
+copied into a stacked tensor, and records that hold one tensor (a block's
+``h`` feeds wq, wk and wv) keep sharing it.  Only a ``'uses'`` axis is
+stacked, by the companions, where it must be permuted.
 """
 from __future__ import annotations
 
@@ -59,9 +63,10 @@ class Tape:
             raise ValueError(f"tape mode {mode!r}; expected 'plain' or "
                              f"'record'")
         self.mode = mode
-        # name -> eps leaf, or (stacked names) the list of per-layer leaves
+        # name -> eps leaf, or (stacked names) the list of per-layer leaves;
+        # likewise each record entry is a tensor or the per-layer list
         self.eps: Dict[str, Any] = {}
-        self.records: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.records: Dict[str, Dict[str, Any]] = {}
         self.specs: Dict[str, LayerSpec] = {}
 
     def inject(self, name: str, y: torch.Tensor, spec: LayerSpec,
@@ -84,9 +89,8 @@ class Tape:
 
     def absorb(self, scope: str, subs: List["Tape"]) -> None:
         """Merge the per-layer tapes of a layer stack under ``scope``: specs
-        gain a leading stack axis, records are stacked on it, and the eps
-        leaves are kept per layer (their grads are stacked after the
-        backward).  Stacks do not nest."""
+        gain a leading stack axis, and records and eps leaves become lists
+        over it, one entry per layer.  Stacks do not nest."""
         first = subs[0]
         for n, spec in first.specs.items():
             full = f"{scope}/{n}"
@@ -94,9 +98,8 @@ class Tape:
                 raise ValueError(f"duplicate tape name: {full!r}")
             self.specs[full] = spec.with_stack(
                 "uses" if n.startswith("shared/") else "layers")
-            self.records[full] = {
-                k: torch.stack([s.records[n][k] for s in subs])
-                for k in first.records[n]}
+            self.records[full] = {k: [s.records[n][k] for s in subs]
+                                  for k in first.records[n]}
             self.eps[full] = [s.eps[n] for s in subs]
 
 
@@ -106,7 +109,7 @@ def scan_blocks(tape: Tape, scope: str, body: Callable,
     """Run ``carry = body(subtape, params_slice, carry)`` for each of the
     ``n_layers`` stacked layers in a Python loop (the reference's
     ``lax.scan``), and in record mode absorb the per-layer records under
-    ``scope`` with a leading ``n_layers`` axis.
+    ``scope`` as lists of ``n_layers`` entries.
 
     ``stacked_params`` leaves have a leading (n_layers,) axis and are
     unbound once.  Parameters the body closes over (re-used every layer)

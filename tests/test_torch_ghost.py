@@ -250,20 +250,32 @@ def test_vit_forced_paths_agree(force, monkeypatch):
 def test_vit_tape_records_in_reference_order():
     """Specs in the tape's insertion order (patch, cls, pos, blocks/...,
     lnf, head: the order the norms are summed in), with the reference's
-    kinds, stacks and parameter paths; dY in the activation dtype."""
+    kinds, stacks and parameter paths; dY in the activation dtype.  A layer
+    stack's records and dY are lists of the per-layer tensors, which stacked
+    have the reference's shapes; the block records that hold one tensor
+    (``h`` into wq, wk and wv) share it."""
     rloss, rparams, rbatch, loss, params, batch = _vit("bfloat16")
     rtape = RefTape(RefTape.COLLECT)
     jax.eval_shape(lambda p, b: rloss(p, b, rtape), rparams, rbatch)
     dEps, records, specs, _ = clipping._eps_backward(loss, params, batch)
     assert list(specs) == list(rtape.specs)
+
+    def stacked(v):
+        return torch.stack(v) if spec.stack else v
+
     for name, spec in specs.items():
         rs = rtape.specs[name]
         assert (spec.kind, spec.stack, spec.param_path, spec.meta) == (
             rs.kind, rs.stack, rs.param_path, rs.meta), name
-        assert tuple(dEps[name].shape) == rtape.eps[name].shape, name
-        assert dEps[name].dtype == torch.bfloat16, name
+        assert isinstance(dEps[name], list) == bool(spec.stack), name
+        assert tuple(stacked(dEps[name]).shape) == rtape.eps[name].shape, name
+        assert stacked(dEps[name]).dtype == torch.bfloat16, name
         for k, v in records[name].items():
-            assert tuple(v.shape) == rtape.records[name][k].shape, (name, k)
+            assert tuple(stacked(v).shape) == rtape.records[name][k].shape, (
+                name, k)
+    for a, b in zip(records["blocks/attn.wq"]["x"],
+                    records["blocks/attn.wv"]["x"]):
+        assert a.data_ptr() == b.data_ptr()
 
 
 @pytest.mark.parametrize("engine", ["masked_ghost", "masked_bk"])
@@ -391,7 +403,8 @@ def test_toy_tape_stacks_layers_and_uses():
     assert specs["blocks/fc"].stack == ("layers",)
     assert specs["blocks/shared/sd"].stack == ("uses",)
     assert specs["emb"].stack == ()
-    assert tuple(records["blocks/shared/sd"]["x"].shape) == (NL, 4, T, D)
+    sd = records["blocks/shared/sd"]["x"]
+    assert len(sd) == NL and all(tuple(x.shape) == (4, T, D) for x in sd)
 
 
 @pytest.mark.parametrize("engine", ["masked_ghost", "masked_bk"])
