@@ -13,17 +13,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card at ViT-Base shapes (bitwise, or within the bound
                stated below), and its time beside its bound, the plain
                version's time and a library call's time where one computes
-               the same function: ``noisy_sgd_update``,
-               ``clip_accum_inplace``, ``ghost_norm_dense`` (the head's
-               shape on the main path and the block shapes a forced direct
-               path gives it) and the resident ``clip_accum``;
+               the same function: ``noisy_sgd_update`` (one leaf, the flat
+               buffer, and the one-launch ``tree_noisy_update`` over all 23
+               leaves against the per-leaf plain update for every noise
+               kind and momentum form; the Threefry and the noise-free step
+               timed, one launch per step), ``clip_accum_inplace``,
+               ``ghost_norm_dense`` (the head's shape on the main path, the
+               block shapes a forced direct path gives it, a ragged shape
+               and the DenseLM direct-path shape; bf16, and f32 at three of
+               them; reruns bit-identical, one launch per call, and one
+               device kernel per call as ``torch.profiler`` sees it) and the
+               resident ``clip_accum``;
 4. fit      — ``PrivacySession.fit()`` of full-width ViT-Base: 3 Poisson
                DP-SGD steps with ``masked_fused_stream``, ``masked_ghost``
                and ``masked_bk`` and 1 with ``masked_fused``; every kernel's
                launch counter is set to 0 just before each run and read just
                after, and each run must launch the kernels its engine
-               reaches.  Then, on one fixed physical batch: ``masked_pe``
-               against ``masked_fused_stream`` (at the sized tile, and at a
+               reaches, ``noisy_sgd_update`` once per step.  Then, on one
+               fixed physical batch: ``masked_pe`` against
+               ``masked_fused_stream`` (at the sized tile, and at a
                forced smaller tile that pads the batch and carries the
                accumulator over several tiles), each streaming call's peak
                memory against the tile-sizing rule's model of it, one
@@ -80,15 +88,22 @@ STREAM_SMALL_TILE = 12
 THREEFRY_UPDATE_F32_OPS = 15
 THREEFRY_I32_OPS = 20 * 3 + 5 * 2 + 2 + 2
 # ghost_norm_dense against its plain version, relative to each n_b: both sum
-# in f32, in other orders (the kernel by 64 x 64 tiles and T slabs of 32)
+# in f32, in other orders (the kernel by 128 x 128 tiles of tensor-core
+# products for bf16, by 64 x 64 tiles and T slabs of 32 for f32)
 GHOST_NORM_REL_TOL = 1e-5
 # ViT-Base's dense shapes (B, T, din, dout) at a physical batch of 32: the
 # head (T = 1 after (B, 768) -> (B, 1, 768)) takes the kernel on the main
-# path; the block denses take it when the direct path is forced
+# path; the block denses take it when the direct path is forced.  "ragged":
+# din and dout off every tile and din off 8, T off the slab; "denselm": the
+# direct path of qwen2-0.5b's 896-wide denses at T = 4096 (T^2 > din dout)
 GHOST_NORM_SHAPES = {"head": (32, 1, 768, 100),
                      "attn_qkvo": (32, 197, 768, 768),
                      "mlp_w1": (32, 197, 768, 3072),
-                     "mlp_w2": (32, 197, 3072, 768)}
+                     "mlp_w2": (32, 197, 3072, 768),
+                     "ragged": (3, 197, 100, 72),
+                     "denselm": (4, 4096, 896, 896)}
+# the shapes also checked with f32 inputs (the f32-activation configurations)
+GHOST_NORM_F32 = ("head", "attn_qkvo", "ragged")
 # masked_ghost / masked_bk / the "ghost" stream norm source against
 # masked_pe on one physical batch of full-width ViT-Base (bf16 activations),
 # the summed gradient (a) as a share of max |acc| and (b) per leaf, as a
@@ -133,6 +148,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn`` (the wrapper's own work and the
+    launch), enqueued back to back after a synchronise; the device catches
+    up afterwards."""
+    import torch
+    fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return us
 
 
 def bound_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0,
@@ -232,7 +264,9 @@ def check_noisy_update(view, device, timer, seed=(0x1234, 0xBEEF)):
                 max_err = max(max_err, err)
         checks[label] = c
         del p0, a, z, m0
-    # timing: the main path's call, one launch per leaf with in-kernel
+    checks["tree"], tree_err = check_tree_noisy_update(view, device, seed)
+    max_err = max(max_err, tree_err)
+    # timing: the main path's call, one launch per step with in-kernel
     # Threefry noise and momentum, on ViT-Base's leaves
     params = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
               for i, nm in enumerate(view.names)}
@@ -256,13 +290,75 @@ def check_noisy_update(view, device, timer, seed=(0x1234, 0xBEEF)):
     n_par = view.n_params
     bms, by = bound_ms(20.0 * n_par, THREEFRY_UPDATE_F32_OPS * n_par,
                        THREEFRY_I32_OPS * n_par)
+    before = nu.noisy_sgd_update.launches
+    kernel_step()
+    checks["launches_per_step"] = nu.noisy_sgd_update.launches - before
+    if device.type == "cuda":
+        assert checks["launches_per_step"] == 1, checks
+        checks["device_kernels_per_step"] = device_kernels(kernel_step)
+        assert checks["device_kernels_per_step"] is None or len(
+            checks["device_kernels_per_step"]) == 1, checks
     timing = {"ms": timer(kernel_step, 20), "plain_ms": timer(plain_step, 3),
               "bound_ms": bms, "bound_by": by, "library_ms": None}
-    # the same launches without noise (16 B/param): what the in-kernel
-    # Threefry and Box-Muller cost on top of the memory traffic
+    checks["host_us_per_step"] = host_us(kernel_step, 20)
+    # the same step without noise: p, acc and m read, p and m written, the
+    # same 20 B/param as the Threefry step: what the in-kernel Threefry and
+    # Box-Muller cost on top of the memory traffic
     checks["noise_free_ms"] = timer(lambda: kernel_step(None), 20)
-    checks["noise_free_bound_ms"] = bound_ms(16.0 * n_par)[0]
+    checks["noise_free_bound_ms"] = bound_ms(20.0 * n_par)[0]
     return checks, max_err, timing
+
+
+def check_tree_noisy_update(view, device, seed):
+    """The one-launch tree_noisy_update against the per-leaf plain update
+    on every leaf of ``view``: each noise kind, with and without momentum;
+    bitwise for the operand and noise-free forms, the Threefry form within
+    the normals' bound (params and momentum to 1e-6)."""
+    import torch
+    from repro_torch.kernels import noisy_update as nu
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    p0 = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
+          for i, nm in enumerate(view.names)}
+    acc = torch.randn(view.total, generator=gen, device=device)
+    z = torch.randn(view.total, generator=gen, device=device)
+    m0 = torch.randn(view.total, generator=gen, device=device)
+    args = (2.3, 64.0, 1e-3)
+    res, max_err = {}, 0.0
+    for mom in (0.0, 0.9):
+        sc, inv_l, lr, mu = nu.update_scalars(*args, mom)
+        for kind in ("operand", "none", "threefry"):
+            pk = {nm: t.clone() for nm, t in p0.items()}
+            pp = {nm: t.clone() for nm, t in p0.items()}
+            mk = m0.clone() if mom else None
+            mp = m0.clone() if mom else None
+            nu.tree_noisy_update(
+                pk, acc, seed if kind != "none" else None, *args, view=view,
+                momentum_buf=mk, momentum=mom,
+                noise=z if kind == "operand" else None)
+            for i, nm in enumerate(view.names):
+                o, n = view.offsets[i], view.sizes[i]
+                zz = (z[o:o + n] if kind == "operand" else
+                      nu.threefry_normal(nu.leaf_seed(seed, i), n, device)
+                      if kind == "threefry" else None)
+                nu.noisy_sgd_update_plain(pp[nm].view(-1), acc[o:o + n], zz,
+                                          sc, inv_l, lr,
+                                          mp[o:o + n] if mom else None, mu)
+            fk, fp = view.flatten(pk), view.flatten(pp)
+            err = float((fk - fp).abs().max())
+            bitwise = same_bits(fk, fp)
+            if mom:
+                err = max(err, float((mk - mp).abs().max()))
+                bitwise = bitwise and same_bits(mk, mp)
+            key = f"{kind}_mom{mom}"
+            res[key] = {"bitwise": bitwise, "max_abs_err": err}
+            if kind != "threefry":
+                assert bitwise, f"tree {key}: not bitwise {err}"
+            else:
+                assert err <= 1e-6, f"tree {key}: {err}"
+            max_err = max(max_err, err)
+            del pk, pp, mk, mp, fk, fp
+    return res, max_err
 
 
 def check_clip_accum(view, device, tile, timer):
@@ -307,10 +403,77 @@ def check_clip_accum(view, device, tile, timer):
     return checks, max_err, timing
 
 
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` runs, as ``{"name", "us"}``
+    (the kernel's device time) from ``torch.profiler``; None off the card
+    or where the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [{"name": e.name, "us": e.time_range.elapsed_us()}
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels or None
+
+
+# SASS opcodes counted per kernel: the Threefry rotations as funnel shifts,
+# uniform-datapath integer work, and the tensor-core instructions
+SASS_OPS = ("SHF", "UIADD3", "ULOP3", "LDSM", "HMMA", "LDGSTS")
+
+
+def kernel_resources(libs):
+    """Per kernel of each built library: registers, stack, shared and local
+    bytes (``cuobjdump -res-usage``) and counts of SASS_OPS (``cuobjdump
+    -sass``).  Informational: None where the toolkit has no cuobjdump."""
+    import re
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    out = {}
+    for name, lib in libs.items():
+        res = subprocess.run([str(tool), "-res-usage", str(lib)],
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout
+        fn = None
+        for line in res.splitlines():
+            m = re.search(r"Function (\S+):", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                          line)
+            if m and fn:
+                out[fn] = dict(zip(("reg", "stack", "shared", "local"),
+                                   map(int, m.groups())))
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                out.setdefault(fn, {}).update({op: 0 for op in SASS_OPS})
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          line)
+            if m and fn and m.group(1) in SASS_OPS:
+                out[fn][m.group(1)] += 1
+    return out
+
+
 def check_ghost_norm(device, timer, shapes=None):
     """ghost_norm_dense against its plain version at ViT-Base's dense
-    shapes, bf16 as the tape records them (and f32 at the head's and the
-    first block shape), reruns bit-identical; times per shape."""
+    shapes, a ragged shape and the DenseLM direct-path shape, bf16 as the
+    tape records them (and f32 at GHOST_NORM_F32's), reruns bit-identical,
+    one launch per call; times per shape beside the bound, the plain
+    version and the library yardstick."""
     import torch
     from repro_torch.kernels import ghost_norm as gn
 
@@ -318,7 +481,7 @@ def check_ghost_norm(device, timer, shapes=None):
     res, max_err = {}, 0.0
     for label, (B, T, di, do) in (shapes or GHOST_NORM_SHAPES).items():
         for dt in (torch.bfloat16, torch.float32):
-            if dt == torch.float32 and label not in ("head", "attn_qkvo"):
+            if dt == torch.float32 and label not in GHOST_NORM_F32:
                 continue
             x = torch.randn(B, T, di, generator=gen, device=device).to(dt)
             dy = torch.randn(B, T, do, generator=gen, device=device).to(dt)
@@ -326,33 +489,56 @@ def check_ghost_norm(device, timer, shapes=None):
             p = gn.ghost_norm_dense_plain(x, dy)
             rel = float(((k - p).abs() / p.abs()).max())
             err = float((k - p).abs().max())
+            before = gn.ghost_norm_dense.launches
+            rerun = gn.ghost_norm_dense(x, dy)
             c = {"max_rel_err": rel, "max_abs_err": err,
-                 "rerun_bitwise": same_bits(k, gn.ghost_norm_dense(x, dy))}
+                 "rerun_bitwise": same_bits(k, rerun),
+                 "launches_per_call": gn.ghost_norm_dense.launches - before}
+            # both against an f64 product of the same inputs: the largest
+            # relative error and its signed mean (a bias shows there)
+            m = torch.einsum("bti,bto->bio", x.double(), dy.double())
+            ref = (m * m).sum(dim=(1, 2))
+            del m
+            for side, v in (("kernel", k), ("plain", p)):
+                d = (v.double() - ref) / ref
+                c[f"{side}_vs_f64_max_rel"] = float(d.abs().max())
+                c[f"{side}_vs_f64_mean_rel"] = float(d.mean())
             key = f"{label}_{str(dt).split('.')[-1]}"
             assert rel <= GHOST_NORM_REL_TOL, (key, c)
             assert c["rerun_bitwise"], (key, c)
+            if device.type == "cuda":
+                assert c["launches_per_call"] == 1, (key, c)
+                # what the card ran for one call (the scratch is warm)
+                c["device_kernels"] = device_kernels(
+                    lambda: gn.ghost_norm_dense(x, dy))
+                assert c["device_kernels"] is None or len(
+                    c["device_kernels"]) == 1, (key, c)
             max_err = max(max_err, err)
-            if dt == torch.bfloat16:
-                xf, df = x.float(), dy.float()
-                # the product's multiply-adds on bf16 operands at the bf16
-                # rate, the f32 square-and-add of each product entry at f32's
-                bms, by = bound_ms(2.0 * (x.numel() + dy.numel()) + 4.0 * B,
-                                   f32_ops=2.0 * B * di * do,
-                                   bf16_ops=2.0 * B * di * do * T)
-                c.update({
-                    "shape": [B, T, di, do],
-                    "ms": timer(lambda: gn.ghost_norm_dense(x, dy), 20),
-                    "plain_ms": timer(
-                        lambda: gn.ghost_norm_dense_plain(x, dy), 5),
-                    "bound_ms": bms, "bound_by": by,
-                    # one batched product and its sum of squares on f32
-                    # copies of the same inputs: the yardstick
-                    "library_ms": timer(lambda: torch.bmm(
-                        xf.transpose(1, 2), df).square().sum(dim=(1, 2)),
-                        20)})
-                del xf, df
+            xf, df = x.float(), dy.float()
+            # bf16 operands: the product's multiply-adds at the bf16 rate,
+            # the f32 square-and-add of each product entry at f32's; f32
+            # operands: all at f32's (the CUDA cores, no TF32)
+            mults = 2.0 * B * di * do * T
+            bms, by = bound_ms(
+                x.element_size() * (x.numel() + dy.numel()) + 4.0 * B,
+                f32_ops=2.0 * B * di * do + (
+                    mults if dt == torch.float32 else 0.0),
+                bf16_ops=mults if dt == torch.bfloat16 else 0.0)
+            c.update({
+                "shape": [B, T, di, do],
+                "host_us_per_call": host_us(
+                    lambda: gn.ghost_norm_dense(x, dy), 20),
+                "ms": timer(lambda: gn.ghost_norm_dense(x, dy), 20),
+                "plain_ms": timer(
+                    lambda: gn.ghost_norm_dense_plain(x, dy), 5),
+                "bound_ms": bms, "bound_by": by,
+                # one batched product and its sum of squares on f32 copies
+                # of the same inputs: the yardstick
+                "library_ms": timer(lambda: torch.bmm(
+                    xf.transpose(1, 2), df).square().sum(dim=(1, 2)), 20)})
+            del xf, df
             res[key] = c
-            del x, dy, k, p
+            del x, dy, k, p, rerun
     return res, max_err
 
 
@@ -445,6 +631,9 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
     for name in ENGINE_KERNELS[engine] if device.type == "cuda" else ():
         assert launches[name] > 0, f"fit() with {engine} launched {name} " \
                                    f"no time"
+    if device.type == "cuda":
+        # the update is one launch per step over every leaf
+        assert launches["noisy_sgd_update"] == tc.steps, (engine, launches)
     losses = [h["loss"] for h in out["history"]]
     assert len(losses) == tc.steps and all(map(math.isfinite, losses)), out
     assert all(bool(torch.isfinite(p).all())
@@ -818,6 +1007,8 @@ def main() -> int:
     libs = _build.build_all()
     record["build_seconds"] = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {record['build_seconds']:.1f} s")
+    record["kernel_resources"] = kernel_resources(libs)
+    log(f"kernel resources: {json.dumps(record['kernel_resources'])}")
     # 3. kernels at ViT-Base shapes
     cfg = get_config("vit-base")
     model = build(cfg, device=device)

@@ -6,8 +6,8 @@ and 2), as in the reference package's ``core/engine.py``.
   accumulator ``TrainState.grad_acc`` (layout:
   :class:`~repro_torch.utils.params.FlatGradView`).
 * ``update``: once per logical batch — N(0, (σC)²) noise, divide by the
-  EXPECTED logical batch size L, momentum SGD, in one pass per leaf through
-  the ``noisy_sgd_update`` kernel; then the accumulator is reset.
+  EXPECTED logical batch size L, momentum SGD, over every leaf in one
+  launch of the ``noisy_sgd_update`` kernel; then the accumulator is reset.
 
 The port runs eagerly and updates in place: params, momentum and the
 accumulator are rewritten, not copied, and the step functions mutate and

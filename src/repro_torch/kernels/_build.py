@@ -100,8 +100,9 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
 def require_hopper(device) -> None:
-    """The kernels are built for sm_90a only."""
+    """The kernels are built for sm_90a only (checked once per device)."""
     cap = torch.cuda.get_device_capability(device)
     if cap != (9, 0):
         raise RuntimeError(f"the port's kernels are built for sm_90a; "

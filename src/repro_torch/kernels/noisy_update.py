@@ -1,6 +1,7 @@
 """Fused DP noise + SGD(+momentum) apply: the Hopper kernel
-(``csrc/noisy_update.cu``), its plain PyTorch version, and the per-leaf
-``tree_noisy_update`` wrapper.
+(``csrc/noisy_update.cu``), its plain PyTorch version, and
+``tree_noisy_update``, which applies it to every leaf of a step in ONE
+launch.
 
 Replaces the reference package's TPU kernel ``noisy_sgd_update``
 (``kernels/noisy_update.py``) and its pytree glue
@@ -12,6 +13,15 @@ The kernel updates ``p`` and ``m`` IN PLACE (the reference returns new
 arrays; in place saves a params-sized buffer per step).  Noise comes from an
 operand, from the in-kernel Threefry-2x32 stream (the main path), or not at
 all (the non-private step).
+
+**One launch per step.**  On the card :func:`tree_noisy_update` hands the
+kernel a leaf table (:func:`build_leaf_table`): per leaf its param address,
+its offset into the flat accumulator, momentum and noise buffers, its size,
+its index, its alignment and its first work item.  The table is built once
+per view and per set of parameter tensors and kept on the device
+(:func:`device_leaf_table`); a replaced parameter tensor rebuilds it.  Each
+block of the launch takes one work item, :data:`CHUNK` elements of one leaf.
+The CPU keeps the plain per-leaf loop.
 
 **Per-step seeds.**  The reference draws its noise key with
 ``jax.random.split``; the port cannot reproduce that and does not try.  A
@@ -37,6 +47,10 @@ _TF_ROTS = (13, 15, 26, 6, 17, 29, 16, 24)
 _TF_PARITY = 0x1BD11BDA
 _TWO_PI = 6.283185307179586
 _NOISE_NONE, _NOISE_OPERAND, _NOISE_THREEFRY = 0, 1, 2
+# elements per work item of the launch: csrc/noisy_update.cu's kChunk
+CHUNK = 2048
+# 16-byte vectors of four f32
+VEC = 4
 
 
 def threefry2x32(k0, k1, c0, c1):
@@ -195,35 +209,156 @@ threefry_bits.launches = 0
 def _library() -> ctypes.CDLL:
     lib = _build.library("noisy_update")
     if not getattr(lib, "_typed", False):
-        P, I64, U32, F = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-                          ctypes.c_float)
-        lib.noisy_sgd_update_launch.argtypes = [P, P, P, P, I64, ctypes.c_int,
-                                                U32, U32, F, F, F, F, P]
-        lib.noisy_sgd_update_launch.restype = ctypes.c_int
+        P, I, I64, U32, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                             ctypes.c_uint32, ctypes.c_float)
+        lib.noisy_sgd_update_launch.argtypes = [P, P, P, P, I64, I, U32, U32,
+                                                F, F, F, F, P]
+        lib.noisy_sgd_update_launch.restype = I
+        lib.noisy_tree_update_launch.argtypes = [P, I, I64, P, P, P, I, I,
+                                                 U32, U32, F, F, F, F, P]
+        lib.noisy_tree_update_launch.restype = I
         lib.threefry_bits_launch.argtypes = [U32, U32, I64, P, P, P]
-        lib.threefry_bits_launch.restype = ctypes.c_int
+        lib.threefry_bits_launch.restype = I
+        lib.noisy_update_chunk.restype = I64
+        if lib.noisy_update_chunk() != CHUNK:
+            raise RuntimeError(f"csrc/noisy_update.cu chunks by "
+                               f"{lib.noisy_update_chunk()}, the wrapper by "
+                               f"{CHUNK}")
         lib._typed = True
     return lib
+
+
+# the leaf table's columns (one int64 row per non-empty leaf)
+TABLE_COLUMNS = ("ptr", "offset", "size", "leaf", "head", "item0")
+
+
+def build_leaf_table(view, ptrs) -> Tuple[np.ndarray, int]:
+    """The kernel's leaf table for ``view`` with param ``i`` at address
+    ``ptrs[i]``: an int64 array with one row per non-empty leaf (columns
+    :data:`TABLE_COLUMNS`) and the launch's number of work items.
+
+    ``head`` is the number of elements before the leaf's first 16-byte
+    vector, counted from the flat offset (the flat buffers are 16-byte
+    aligned), or -1 when the param sits at another phase of 16 bytes and
+    the leaf goes element by element.  A leaf's work items cover its vector
+    span (:data:`CHUNK` elements each, at least one); the head goes with the
+    first, the tail (< 4 elements) with the last."""
+    rows, items = [], 0
+    for i, (o, n) in enumerate(zip(view.offsets, view.sizes)):
+        if n == 0:
+            continue
+        head = min((-o) % VEC, n)
+        if (ptrs[i] + 4 * head) % (4 * VEC):
+            head = -1
+        span = n if head < 0 else (n - head) // VEC * VEC
+        rows.append((ptrs[i], o, n, i, head, items))
+        items += max(1, -(-span // CHUNK))
+    return np.array(rows, dtype=np.int64).reshape(-1, 6), items
+
+
+def leaf_table_elements(table: np.ndarray, items: int,
+                        vec_ok: bool = True):
+    """The plain model of the kernel's walk over ``table``: for each of the
+    ``items`` work items, the elements its block updates, as (item, leaf,
+    j, flat offset, in a vector) tuples with ``j`` the index within the
+    leaf.  ``vec_ok`` false (a flat buffer off 16 bytes): the same elements,
+    none in a vector."""
+    starts = table[:, 5]
+    for item in range(items):
+        r = int(np.searchsorted(starts, item, side="right")) - 1
+        _, o, n, leaf, head, item0 = (int(v) for v in table[r])
+        c = item - item0
+        if head < 0:
+            js = [(j, False) for j in range(c * CHUNK, min(n, (c + 1) * CHUNK))]
+        else:
+            vend = head + (n - head) // VEC * VEC
+            v0 = head + c * CHUNK
+            js = [(j, vec_ok) for j in range(v0, min(v0 + CHUNK, vend))]
+            if c == 0:
+                js += [(j, False) for j in range(head)]
+            if v0 + CHUNK >= vend:
+                js += [(j, False) for j in range(vend, n)]
+        for j, vec in js:
+            yield item, leaf, j, o + j, vec
+
+
+_TABLES: Dict[tuple, Tuple[torch.Tensor, int, int]] = {}
+_TABLES_KEPT = 8
+
+
+def device_leaf_table(view, ptrs, device) -> Tuple[torch.Tensor, int, int]:
+    """(the leaf table on ``device``, its rows, the work items), cached per
+    view, device and tuple of param addresses: a replaced param tensor
+    (another address) builds a new table."""
+    key = (view, device, ptrs)
+    hit = _TABLES.get(key)
+    if hit is None:
+        table, items = build_leaf_table(view, ptrs)
+        if len(_TABLES) >= _TABLES_KEPT:
+            _TABLES.clear()
+        hit = (torch.from_numpy(table).to(device), len(table), items)
+        _TABLES[key] = hit
+    return hit
 
 
 def tree_noisy_update(params: Dict[str, torch.Tensor], grad_acc, seeds,
                       sigma_c, expected_batch, lr, *, view,
                       momentum_buf=None, momentum=0.0, noise=None):
-    """The fused DP apply over every leaf: one :func:`noisy_sgd_update`
-    launch per leaf against its offset range of the flat accumulator, as the
-    reference's kernel path does.  Params (and the flat momentum buffer)
-    are updated in place.
+    """The fused DP apply over every leaf, against its offset range of the
+    flat accumulator.  Params (and the flat momentum buffer) are updated in
+    place.  On the card: ONE launch over the device leaf table
+    (:func:`device_leaf_table`), counted in ``noisy_sgd_update.launches``;
+    the operands are checked once per call.  On the CPU: the plain version,
+    leaf by leaf.
 
     ``seeds`` = the step's two seed words (in-kernel noise, leaf ``i`` at
     ``seeds + i``); ``noise`` = a flat N(0,1) operand in the view's layout
     instead; neither = the noise-free step (``sigma_c`` ignored)."""
-    for i, name in enumerate(view.names):
-        o, n = view.offsets[i], view.sizes[i]
-        seg = lambda t: None if t is None else t[o:o + n]
-        seed = leaf_seed(seeds, i) if seeds is not None and noise is None \
-            else None
-        noisy_sgd_update(params[name].view(-1), grad_acc[o:o + n],
-                         seg(noise), sigma_c, expected_batch, lr,
-                         momentum_buf=seg(momentum_buf), momentum=momentum,
-                         seed=seed)
+    dev = grad_acc.device
+    if dev.type == "cpu":
+        for i, name in enumerate(view.names):
+            o, n = view.offsets[i], view.sizes[i]
+            seg = lambda t: None if t is None else t[o:o + n]
+            seed = leaf_seed(seeds, i) if seeds is not None and noise is None \
+                else None
+            noisy_sgd_update(params[name].view(-1), grad_acc[o:o + n],
+                             seg(noise), sigma_c, expected_batch, lr,
+                             momentum_buf=seg(momentum_buf),
+                             momentum=momentum, seed=seed)
+        return params, momentum_buf
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    flats = {nm: t for nm, t in (("grad_acc", grad_acc), ("noise", noise),
+                                 ("momentum_buf", momentum_buf))
+             if t is not None}
+    for nm, t in flats.items():
+        _check_flat(nm, t, view.total, dev)
+    leaves = [params[nm] for nm in view.names]
+    for nm, t, n in zip(view.names, leaves, view.sizes):
+        if (t.dtype != torch.float32 or t.device != dev or t.numel() != n
+                or not t.is_contiguous()):
+            raise ValueError(f"param {nm} must be a contiguous float32 "
+                             f"tensor of {n} elements on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _build.require_hopper(dev)
+    lib = _library()
+    table, n_rows, items = device_leaf_table(
+        view, tuple(t.data_ptr() for t in leaves), dev)
+    if n_rows == 0:                      # no element to update
+        return params, momentum_buf
+    sc, inv_l, lr, mu = update_scalars(sigma_c, expected_batch, lr, momentum)
+    kind = (_NOISE_OPERAND if noise is not None else
+            _NOISE_THREEFRY if seeds is not None else _NOISE_NONE)
+    k0, k1 = ((int(seeds[0]) & _M32, int(seeds[1]) & _M32)
+              if kind == _NOISE_THREEFRY else (0, 0))
+    vec_ok = int(all(t.data_ptr() % 16 == 0 for t in flats.values()))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.noisy_tree_update_launch(
+            table.data_ptr(), n_rows, items, grad_acc.data_ptr(), ptr(noise),
+            ptr(momentum_buf), vec_ok, kind, k0, k1, sc, inv_l, lr, mu,
+            stream)
+    _build.check(lib, rc, "tree_noisy_update")
+    noisy_sgd_update.launches += 1
     return params, momentum_buf

@@ -13,6 +13,8 @@ Tolerances:
   bitwise.
 * Threefry bits: bitwise.  Normals: within 4 ULPs of max(|z|, 1) (``log``
   and ``cos`` differ between XLA:CPU and PyTorch by a few ULPs).
+* ``ghost_norm_dense`` plain version against ``ghost_norm_dense_ref``: 1e-5
+  relative (the same f32 products summed in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -25,8 +27,10 @@ from repro.kernels.clip_accum import clip_accum_inplace as ref_clip_inplace
 from repro.kernels.noisy_update import bits_to_normal as ref_bits_to_normal
 from repro.kernels.noisy_update import noisy_sgd_update as ref_noisy
 from repro.kernels.noisy_update import threefry2x32 as ref_threefry
+from repro.kernels.ref import ghost_norm_dense_ref
 from repro.utils.params import FlatGradView as RefView
 from repro_torch.kernels import clip_accum as ca
+from repro_torch.kernels import ghost_norm as gn
 from repro_torch.kernels import noisy_update as nu
 from repro_torch.utils.params import FlatGradView, params_from_numpy
 
@@ -225,3 +229,54 @@ def test_clip_accum_inplace_rejects_bad_operands(over, exc):
     with pytest.raises(exc):
         ca.clip_accum_inplace(a["acc"], a["grads"], a["norms"], a["mask"],
                               1.0)
+
+
+# --------------------------------------------------------------------------
+# ghost_norm_dense: the wrapper's Python side and the plain version at the
+# head's T = 1, ViT's T = 197 and widths off every tile
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((32, 768, 100), {"bfloat16": 6, "float32": 24}),    # ViT-Base's head
+    ((3, 100, 72), {"bfloat16": 1, "float32": 4}),       # ragged
+    ((4, 896, 896), {"bfloat16": 49, "float32": 196}),   # qwen2-0.5b
+    ((2, 128, 129), {"bfloat16": 2, "float32": 6}),
+])
+def test_ghost_norm_scratch_sizes(shape, tiles):
+    B, din, dout = shape
+    for name, n in tiles.items():
+        dt = getattr(torch, name)
+        assert gn.n_tiles(din, dout, dt) == n
+        assert gn.scratch_sizes(B, din, dout, dt) == (B * n, B)
+
+
+def test_ghost_norm_scratch_grows_and_keeps_tickets_zero():
+    dev = torch.device("cpu")
+    gn._SCRATCH.pop(dev, None)
+    p, t = gn._scratch(dev, 40, 5)
+    assert p.dtype == torch.float32 and p.numel() == 40
+    assert t.dtype == torch.int32 and t.numel() == 5 and not t.any()
+    assert gn._scratch(dev, 12, 3)[0] is p            # big enough: kept
+    p2, t2 = gn._scratch(dev, 30, 9)                  # more tickets: grown
+    assert p2.numel() == 40 and t2.numel() == 9 and not t2.any()
+    gn._SCRATCH.pop(dev, None)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 100, 72), (2, 197, 100, 72),
+                                   (1, 197, 130, 70), (3, 1, 768, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ghost_norm_dense_plain_matches_ref_at_vit_lengths(shape, dtype):
+    """T = 1 (the head, on every ghost and BK norm pass), T = 197 (ViT's
+    blocks) and din, dout off the kernel's tiles: the wrapper's CPU path
+    against the reference's ``ghost_norm_dense_ref``, 1e-5 relative."""
+    B, T, di, do = shape
+    rng = np.random.default_rng(T + di)
+    x = rng.standard_normal((B, T, di)).astype(np.float32)
+    dy = rng.standard_normal((B, T, do)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    dt = torch.from_numpy(dy).to(getattr(torch, dtype))
+    got = gn.ghost_norm_dense(xt, dt).numpy()
+    want = np.asarray(ghost_norm_dense_ref(
+        jnp.asarray(xt.float().numpy()), jnp.asarray(dt.float().numpy())))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert gn.ghost_norm_dense.launches == 0       # the CPU launches nothing
