@@ -42,9 +42,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                (forced direct path) against the einsum (forced ghost path);
                one ``accumulate`` per engine timed against ``nonprivate``
                (the paper's overhead ratio); and the training CLI with
-               ``masked_pe`` and each new engine.
+               ``masked_pe`` and each new engine;
+5. denselm  — full-width qwen2-0.5b (630,167,424 params) at 1,024 tokens,
+               after the ViT session is freed: ``ghost_norm_dense`` at its
+               direct-path shapes (4, 1024, 896, 896) and (4, 1024, 896,
+               128), the one-launch ``tree_noisy_update`` over the 630M-param
+               view against the per-leaf plain update (and timed),
+               ``clip_accum_inplace`` at the sized stream tile and
+               ``clip_accum`` at the physical batch of 4; ``fit()`` with
+               ``masked_bk``, ``masked_ghost`` and ``masked_fused_stream``
+               (2 steps each) and ``masked_fused`` (1 step), each launching
+               ``noisy_sgd_update`` once per step and ``ghost_norm_dense``
+               exactly 96 times per norm pass (wq, wk, wv, wo of 24 layers);
+               on one physical batch the record engines against
+               ``masked_pe`` under DenseLM's own limits (``DENSELM_LIMITS``);
+               the host cost of one norm pass; one accumulate per engine
+               against ``nonprivate``; and the training CLI at 1,024 tokens.
 
-The line before the last lists the kernels as JSON; the last line is
+The line before the last lists the kernels as JSON (launches summed over
+every ``fit()``, ViT's and DenseLM's; times at ViT-Base's main-path
+shapes, DenseLM's in the record); the last line is
 ``{"ok": true, "device": {...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero and prints no result.
@@ -128,6 +145,45 @@ RECORD_NORM_REL_TOL = 1e-3
 # every dense layer's ghost norm through the kernel against the einsum path,
 # relative: the same f32 products summed in other orders
 FORCED_PATH_REL_TOL = 1e-4
+VIT_LIMITS = {"pe": RECORD_PE_REL_TOL, "leaf": RECORD_LEAF_REL_TOL,
+              "norms": RECORD_NORM_REL_TOL, "forced": FORCED_PATH_REL_TOL}
+
+# phase 5: full-width qwen2-0.5b (24 layers, d 896, 14 heads, 2 KV heads,
+# d_ff 4864, vocab 151,936, bf16 activations, f32 params) at 1,024 tokens
+DENSELM_ARCH = "qwen2-0.5b"
+DENSELM_PARAMS = 630_167_424
+DENSELM_TRAIN = dict(n_data=64, q=0.125, physical_batch=4, target_eps=8.0,
+                     seq_len=1024, smoke=False)
+# at T = 1,024 (T^2 = 1,048,576) the Mixed-Ghost rule sends wq, wo
+# (896 x 896) and wk, wv (896 x 128) of every layer to the kernel; the
+# SwiGLU denses (896 x 4864) and the head (896 x 151,936) take the Gram path
+DENSELM_DIRECT_PER_LAYER = 4
+DENSELM_GHOST_SHAPES = {"denselm_wq_wo": (4, 1024, 896, 896),
+                        "denselm_wk_wv": (4, 1024, 896, 128)}
+# DenseLM's own limits for the record engines against masked_pe on one
+# physical batch, set before its first run on the card from the CPU's bf16
+# measurements (compare_record_engines with no limits, on a physical batch
+# of 4 of reduced qwen2-0.5b at T = 128 and of a two-layer cut at full
+# width, d 896, with a vocab of 4,096 at T = 256; seeds 0 and 1) and from
+# the card-over-CPU ratios the ViT showed (ghost: 1.5x of max |acc|, 6x on
+# the worst leaf; BK: 3x of max |acc|, 0.7x on the worst leaf):
+# * masked_ghost: 9.3e-3 to 1.0e-2 of max |acc| on the CPU, so about 1.5e-2
+#   expected: 5e-2; worst leaf 1.2e-2 to 1.6e-2 (the layer norms' gains, the
+#   key bias, the embedding), so about 1e-1 expected: 2e-1, still 5x below
+#   the O(1) of a zeroed or wrong leaf;
+# * masked_bk: 6.1e-4 to 1.9e-3 of max |acc|, so about 6e-3 expected (above
+#   the ViT's 5e-3): 2e-2; worst leaf 2.5e-3 to 4.5e-3: 2e-2;
+# * the "ghost" stream source: 7.7e-7 to 1.6e-6, worst leaf 1.0e-6 to
+#   2.3e-6: the ViT's 1e-4 and 1e-3;
+# * the norms: 1.0e-6 to 1.9e-6 relative: the ViT's 1e-3;
+# * the forced direct path against the Gram path per dense layer: 4.3e-7
+#   at T = 128 and 2.3e-6 at T = 256 (it grows with T): the ViT's 1e-4
+DENSELM_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 2e-2,
+           "masked_fused_stream_ghost": 1e-4},
+    "leaf": {"masked_ghost": 2e-1, "masked_bk": 2e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -266,8 +322,21 @@ def check_noisy_update(view, device, timer, seed=(0x1234, 0xBEEF)):
         del p0, a, z, m0
     checks["tree"], tree_err = check_tree_noisy_update(view, device, seed)
     max_err = max(max_err, tree_err)
-    # timing: the main path's call, one launch per step with in-kernel
-    # Threefry noise and momentum, on ViT-Base's leaves
+    timing, step_checks = time_tree_update(view, device, timer, seed)
+    checks.update(step_checks)
+    return checks, max_err, timing
+
+
+def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
+    """The main path's call, one launch per step with in-kernel Threefry
+    noise and momentum over every leaf of ``view``, timed beside its bound
+    and the per-leaf plain update; its launches and device kernels per
+    step, its host work, and the noise-free step's time."""
+    import torch
+    from repro_torch.kernels import noisy_update as nu
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    checks = {}
     params = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
               for i, nm in enumerate(view.names)}
     acc = torch.randn(view.total, generator=gen, device=device)
@@ -306,7 +375,7 @@ def check_noisy_update(view, device, timer, seed=(0x1234, 0xBEEF)):
     # Box-Muller cost on top of the memory traffic
     checks["noise_free_ms"] = timer(lambda: kernel_step(None), 20)
     checks["noise_free_bound_ms"] = bound_ms(20.0 * n_par)[0]
-    return checks, max_err, timing
+    return timing, checks
 
 
 def check_tree_noisy_update(view, device, seed):
@@ -604,9 +673,14 @@ def kernel_wrappers():
             "clip_accum": ca.clip_accum}
 
 
-def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
+def run_fit(arch, device, train_kw, engine="masked_fused_stream",
+            direct_denses=0):
     """fit() with ``engine``; every kernel counter is set to 0 just before
-    and read just after.  Returns (session, record, launches)."""
+    and read just after.  ``direct_denses`` is the number of dense layers
+    the Mixed-Ghost rule sends to the kernel in one norm pass: a record
+    engine must launch ``ghost_norm_dense`` exactly that many times per
+    physical batch (one norm pass each), the other engines never.
+    Returns (session, record, launches)."""
     import torch
     from repro_torch.core import DPConfig
     from repro_torch.core.session import PrivacySession, TrainConfig
@@ -618,6 +692,14 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
+    # one accumulate per physical batch: one norm pass of a record engine
+    accumulate, passes = session._accumulate, []
+
+    def counted(*args):
+        passes.append(1)
+        return accumulate(*args)
+
+    session._accumulate = counted
     wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
@@ -631,9 +713,14 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
     for name in ENGINE_KERNELS[engine] if device.type == "cuda" else ():
         assert launches[name] > 0, f"fit() with {engine} launched {name} " \
                                    f"no time"
+    session._accumulate = accumulate
+    record_based = session.describe()["engine_traits"]["record_based"]
+    ghost_launches = direct_denses * len(passes) if record_based else 0
     if device.type == "cuda":
         # the update is one launch per step over every leaf
         assert launches["noisy_sgd_update"] == tc.steps, (engine, launches)
+        assert launches["ghost_norm_dense"] == ghost_launches, (
+            engine, launches, len(passes), direct_denses)
     losses = [h["loss"] for h in out["history"]]
     assert len(losses) == tc.steps and all(map(math.isfinite, losses)), out
     assert all(bool(torch.isfinite(p).all())
@@ -650,6 +737,7 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream"):
               "examples_per_s": out["examples_per_s"],
               "stream_tile": session.describe()["stream_tile"],
               "engine_traits": session.describe()["engine_traits"],
+              "physical_batches": len(passes),
               "launches": launches,
               "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else None)}
@@ -713,7 +801,8 @@ def compare_engines(session, tile):
     from repro_torch.utils.params import FlatGradView
 
     tc, dev = session.train_cfg, session.device
-    ds = dataset_for_config(session.model_cfg, tc.n_data, seed=tc.seed)
+    ds = dataset_for_config(session.model_cfg, tc.n_data, tc.seq_len,
+                            seed=tc.seed)
     B = tc.physical_batch
     batch, mask = session._place(ds.fetch(np.arange(B)),
                                  (np.arange(B) < B - B // 4)
@@ -808,17 +897,20 @@ def _fixed_batch(session):
     import numpy as np
     from repro_torch.data.synthetic import dataset_for_config
     tc = session.train_cfg
-    ds = dataset_for_config(session.model_cfg, tc.n_data, seed=tc.seed)
+    ds = dataset_for_config(session.model_cfg, tc.n_data, tc.seq_len,
+                            seed=tc.seed)
     B = tc.physical_batch
     return session._place(ds.fetch(np.arange(B)),
                           (np.arange(B) < B - B // 4).astype(np.float32))
 
 
-def compare_record_engines(session):
+def compare_record_engines(session, limits=VIT_LIMITS):
     """On one fixed physical batch: masked_fused (bitwise), masked_ghost,
     masked_bk and the streaming engine's "ghost" norm source against
     masked_pe, and every dense layer's ghost norm through the kernel
-    (forced direct path) against the einsum (forced ghost path)."""
+    (forced direct path) against the einsum (forced ghost path), held to
+    ``limits`` (the model's named limits: "pe", "leaf" per engine, "norms",
+    "forced")."""
     import torch
     from repro_torch.core import fused, layers
     from repro_torch.core.clipping import _eps_backward, resolve_engine
@@ -829,14 +921,23 @@ def compare_record_engines(session):
     view = FlatGradView.for_params(params)
     run = {e: resolve_engine(e) for e in ("masked_pe", "masked_fused",
                                           "masked_ghost", "masked_bk")}
+    def host_flat(summed):
+        """The summed grads flattened on the host, their device copies
+        released: at DenseLM's width the engines need the card's room."""
+        acc = view.flatten(summed).cpu()
+        summed.clear()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return acc
+
     summed, pe_aux = run["masked_pe"](loss_fn, params, batch, mask, 4.63)
-    acc_pe = view.flatten(summed)
-    del summed
+    acc_pe = host_flat(summed)
     scale = float(acc_pe.abs().max())
-    pe_norms = pe_aux["per_example_norms"]
+    pe_norms = pe_aux["per_example_norms"].cpu()
     res = {"max_abs_acc": scale}
 
     def against_pe(acc, norms):
+        norms = norms.cpu()
         leaf = {}
         for nm, o, n in zip(view.names, view.offsets, view.sizes):
             a, p = acc[o:o + n], acc_pe[o:o + n]
@@ -852,16 +953,15 @@ def compare_record_engines(session):
                                             / pe_norms).max())}
 
     def hold(key, r):
-        assert r["rel_to_max_acc"] <= RECORD_PE_REL_TOL[key], (key, r)
-        assert r["worst_leaf_rel_err"] <= RECORD_LEAF_REL_TOL[key], (key, r)
-        assert r["norms_max_rel_err"] <= RECORD_NORM_REL_TOL, (key, r)
+        assert r["rel_to_max_acc"] <= limits["pe"][key], (key, r)
+        assert r["worst_leaf_rel_err"] <= limits["leaf"][key], (key, r)
+        assert r["norms_max_rel_err"] <= limits["norms"], (key, r)
 
     ghost_norms = None
     for e in ("masked_fused", "masked_ghost", "masked_bk"):
         kw = {"check_coverage": True} if e == "masked_bk" else {}
         summed, aux = run[e](loss_fn, params, batch, mask, 4.63, **kw)
-        acc = view.flatten(summed)
-        del summed
+        acc = host_flat(summed)
         res[e] = against_pe(acc, aux["per_example_norms"])
         if e == "masked_ghost":
             ghost_norms = aux["per_example_norms"]
@@ -874,13 +974,15 @@ def compare_record_engines(session):
     # the streaming engine with the "ghost" norm source, tile = batch
     prev = fused.set_stream_norm_source("ghost")
     try:
-        acc = view.zeros(mask.device)
+        # the session's own accumulator: no room for a second at DenseLM's
+        # width
+        acc = session.state.grad_acc.zero_()
         _, aux = resolve_engine("masked_fused_stream")(
             loss_fn, params, batch, mask, 4.63, acc=acc, view=view,
             tile=int(mask.shape[0]))
     finally:
         fused.set_stream_norm_source(prev)
-    r = against_pe(acc, aux["per_example_norms"])
+    r = against_pe(acc.cpu(), aux["per_example_norms"])
     r["norms_bitwise_vs_masked_ghost"] = same_bits(aux["per_example_norms"],
                                                    ghost_norms)
     res["masked_fused_stream_ghost"] = r
@@ -909,7 +1011,7 @@ def compare_record_engines(session):
     res["forced_direct_vs_ghost_max_rel"] = per_layer
     log(f"ghost norms, kernel vs einsum, per dense layer: "
         f"{json.dumps(per_layer)}")
-    assert max(per_layer.values()) <= FORCED_PATH_REL_TOL, per_layer
+    assert max(per_layer.values()) <= limits["forced"], per_layer
     del dEps, records
     return res
 
@@ -921,20 +1023,22 @@ ACCUMULATE_ENGINES = ("nonprivate", "masked_pe", "masked_fused",
 def time_accumulate(session, iters=3):
     """One accumulate of the fixed physical batch per engine (host clock
     around synchronised calls, after one warm-up call), and its peak
-    memory; the ratio to nonprivate is the paper's DP overhead."""
+    memory; the ratio to nonprivate is the paper's DP overhead.  The
+    accumulates add into the session's own accumulator (zeroed per engine):
+    at DenseLM's width the card has no room for a second one."""
     import torch
-    from repro_torch.core.engine import (DPConfig, build_accumulate_fn,
-                                         init_state)
+    from repro_torch.core.engine import DPConfig, build_accumulate_fn
 
     batch, mask = _fixed_batch(session)
-    params, dev = session.state.params, session.device
+    dev = session.device
     B = int(mask.shape[0])
+    state = session.state
     res = {}
     for e in ACCUMULATE_ENGINES:
         acc_fn = build_accumulate_fn(session.loss_fn, DPConfig(
             engine=e, clip_norm=4.63,
             stream_tile=B if e == "masked_fused_stream" else None))
-        state = init_state(params, session.optimizer, (0, 1))
+        state.grad_acc.zero_()
         acc_fn(state, batch, mask)
         cuda = dev.type == "cuda"
         if cuda:
@@ -950,7 +1054,7 @@ def time_accumulate(session, iters=3):
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
                   "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
                                      if cuda else None)}
-        del state, acc_fn
+        del acc_fn
         if cuda:
             torch.cuda.empty_cache()
     base = res["nonprivate"]["ms"]
@@ -968,6 +1072,153 @@ def run_cli(device, arch_args, engine="masked_pe"):
     assert out["history"] and all(_m.isfinite(h["loss"])
                                   for h in out["history"]), out
     return {"history": out["history"], "final_eps": out["final_eps"]}
+
+
+def norm_pass_cost(session):
+    """One ghost-norm pass over the fixed physical batch, after its
+    eps-backward: the ``ghost_norm_dense`` calls it makes, the host
+    microseconds each call takes (the wrapper's own work and the launch, on
+    the host clock around each call), the pass's synchronised wall time,
+    and the kernel's device time in it as ``torch.profiler`` records it."""
+    import torch
+    from repro_torch.core import clipping, layers
+
+    batch, _ = _fixed_batch(session)
+    dev = session.device
+    dEps, records, specs, losses = clipping._eps_backward(
+        session.loss_fn, session.state.params, batch)
+    B = losses.shape[0]
+
+    def norm_pass():
+        return clipping._sq_norms(dEps, records, specs, B, dev)
+
+    norm_pass()                                    # warm
+    inner, host = layers.ghost_norm_dense, []
+
+    def timed(x, dy):
+        t0 = time.perf_counter()
+        out = inner(x, dy)
+        host.append(time.perf_counter() - t0)
+        return out
+
+    layers.ghost_norm_dense = timed
+    try:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        norm_pass()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        layers.ghost_norm_dense = inner
+    res = {"ghost_norm_dense_calls": len(host),
+           "host_us_per_call": 1e6 * sum(host) / max(len(host), 1),
+           "host_us_all_calls": 1e6 * sum(host),
+           "norm_pass_wall_ms": wall_ms}
+    kernels = device_kernels(norm_pass)
+    if kernels is not None:
+        ours = [k["us"] for k in kernels if "ghost_norm" in k["name"]]
+        res.update({"kernel_device_us_all_calls": sum(ours),
+                    "kernel_device_us_per_call": sum(ours) / max(len(ours),
+                                                                 1),
+                    "device_us_all_kernels": sum(k["us"] for k in kernels),
+                    "device_kernels_in_pass": len(kernels)})
+    del dEps, records
+    return res
+
+
+def run_denselm(device, timer):
+    """Phase 5: full-width qwen2-0.5b at 1,024 tokens.  Each kernel against
+    its plain version at DenseLM's shapes, then fit() per engine (the
+    counters set to 0 just before each run and read just after), the record
+    engines against masked_pe under DENSELM_LIMITS, the host cost of one
+    norm pass, one accumulate per engine against nonprivate, and the CLI."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.launch.costmodel import (free_memory_bytes,
+                                              stream_tile_size)
+    from repro_torch.models import build
+    from repro_torch.utils.params import FlatGradView
+
+    cfg = get_config(DENSELM_ARCH)
+    model = build(cfg, device=device)
+    view = FlatGradView.for_params(model.params())
+    del model
+    torch.cuda.empty_cache()
+    assert view.n_params == DENSELM_PARAMS, view.n_params
+    B = DENSELM_TRAIN["physical_batch"]
+    tile = stream_tile_size(B, view.n_params, free_memory_bytes(device))
+    res = {"arch": DENSELM_ARCH, "n_params": view.n_params,
+           "flat": view.total, "seq_len": DENSELM_TRAIN["seq_len"],
+           "stream_tile": tile}
+    log(f"{DENSELM_ARCH}: {view.n_params} params, flat {view.total}, "
+        f"stream tile {tile}")
+    gn_checks, gn_err = check_ghost_norm(device, timer, DENSELM_GHOST_SHAPES)
+    log(f"denselm ghost_norm_dense: {json.dumps(gn_checks)}")
+    tree, tree_err = check_tree_noisy_update(view, device, (0x1234, 0xBEEF))
+    nu_time, nu_checks = time_tree_update(view, device, timer)
+    nu_checks["tree"] = tree
+    log(f"denselm noisy_sgd_update: {json.dumps(nu_checks)} "
+        f"{json.dumps(nu_time)}")
+    torch.cuda.empty_cache()
+    ca_checks, ca_err, ca_time = check_clip_accum(view, device, tile, timer)
+    log(f"denselm clip_accum_inplace: {json.dumps(ca_checks)} "
+        f"{json.dumps(ca_time)}")
+    torch.cuda.empty_cache()
+    cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device, B,
+                                                           timer)
+    log(f"denselm clip_accum: {json.dumps(cr_checks)} {json.dumps(cr_time)}")
+    torch.cuda.empty_cache()
+    res["kernel_checks"] = {
+        "ghost_norm_dense": {"checks": gn_checks, "max_abs_err": gn_err},
+        "noisy_sgd_update": {"checks": nu_checks, "max_abs_err": tree_err,
+                             **nu_time},
+        "clip_accum_inplace": {"checks": ca_checks, "max_abs_err": ca_err,
+                               **ca_time},
+        "clip_accum": {"checks": cr_checks, "max_abs_err": cr_err,
+                       **cr_time}}
+    direct = DENSELM_DIRECT_PER_LAYER * cfg.n_layers
+    res["direct_denses_per_norm_pass"] = direct
+    res["fit"] = {}
+    session = None
+    for engine, steps in (("masked_bk", 2), ("masked_ghost", 2),
+                          ("masked_fused_stream", 2), ("masked_fused", 1)):
+        del session
+        torch.cuda.empty_cache()
+        session, rec, _ = run_fit(DENSELM_ARCH, device,
+                                  dict(DENSELM_TRAIN, steps=steps), engine,
+                                  direct_denses=direct)
+        res["fit"][engine] = rec
+        log(f"denselm fit {engine}: {json.dumps(rec)}")
+    # the comparisons, the norm pass and the accumulate times on a session
+    # without momentum: its buffer is room the per-example engines need
+    del session
+    torch.cuda.empty_cache()
+    session = PrivacySession.from_config(
+        DENSELM_ARCH, DPConfig(engine="masked_pe", clip_norm=4.63),
+        TrainConfig(**dict(DENSELM_TRAIN, steps=1, momentum=0.0)),
+        device=device)
+    res["record_engines"] = compare_record_engines(session, DENSELM_LIMITS)
+    torch.cuda.empty_cache()
+    res["norm_pass"] = norm_pass_cost(session)
+    log(f"denselm norm pass: {json.dumps(res['norm_pass'])}")
+    assert res["norm_pass"]["ghost_norm_dense_calls"] == direct, res
+    torch.cuda.empty_cache()
+    res["accumulate"] = time_accumulate(session)
+    log(f"denselm accumulate of one physical batch of {B} x "
+        f"{DENSELM_TRAIN['seq_len']} tokens, ms and ratio to nonprivate: "
+        f"{json.dumps(res['accumulate'])}")
+    del session
+    torch.cuda.empty_cache()
+    res["cli"] = run_cli(device, [
+        "--arch", DENSELM_ARCH, "--seq-len", str(DENSELM_TRAIN["seq_len"]),
+        "--physical", str(B), "--n-data", str(DENSELM_TRAIN["n_data"])],
+        "masked_fused_stream")
+    log(f"denselm cli: {json.dumps(res['cli'])}")
+    return res
 
 
 def main() -> int:
@@ -1044,8 +1295,10 @@ def main() -> int:
                           ("masked_bk", 3), ("masked_fused", 1)):
         del session
         torch.cuda.empty_cache()
+        # the head (T = 1) is ViT-Base's one direct-path dense
         session, rec, _ = run_fit("vit-base", device,
-                                  dict(train_kw, steps=steps), engine)
+                                  dict(train_kw, steps=steps), engine,
+                                  direct_denses=1)
         record["fit"][engine] = rec
         log(f"fit {engine}: {json.dumps(rec)}")
         if engine == "masked_fused_stream":
@@ -1066,8 +1319,12 @@ def main() -> int:
         record["cli"][engine] = run_cli(device, ["--arch", "vit-base"],
                                         engine)
         log(f"cli {engine}: {json.dumps(record['cli'][engine])}")
-    # 5. the kernels line: launches summed over the fit() runs
-    launches = {k: sum(r["launches"][k] for r in record["fit"].values())
+    # 5. full-width qwen2-0.5b at 1,024 tokens
+    record["denselm"] = run_denselm(device, cuda_ms)
+    # the kernels line: launches summed over every fit() run, ViT's and
+    # DenseLM's
+    fits = [*record["fit"].values(), *record["denselm"]["fit"].values()]
+    launches = {k: sum(r["launches"][k] for r in fits)
                 for k in kernel_wrappers()}
     kernels = [
         {"name": "noisy_sgd_update", "route": "cuda",

@@ -1,9 +1,9 @@
 """ArchConfig: the architecture description the port shares with the
 reference package, as a plain dataclass (no JAX).
 
-The port builds ViT only; the fields of the other families are kept so a
-config reads the same on both sides and ``reduced()`` gives the same smoke
-variant.
+The port builds the ViT and the dense decoder LM; the fields of the other
+families are kept so a config reads the same on both sides and
+``reduced()`` gives the same smoke variant.
 """
 from __future__ import annotations
 

@@ -1,0 +1,8 @@
+"""Qwen2-0.5B: GQA (2 KV heads), QKV bias [arXiv:2407.10671]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-0.5b", family="dense",
+    n_layers=24, d_model=896, n_heads=14, n_kv_heads=2,
+    d_ff=4864, vocab=151936, qkv_bias=True, rope_theta=1e6,
+)

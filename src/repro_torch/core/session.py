@@ -46,6 +46,7 @@ class TrainConfig:
     """Host-side lifecycle knobs: data, sampling, optimizer, seeding."""
     steps: int = 4
     n_data: int = 512
+    seq_len: int = 16                    # tokens per example (LM families)
     physical_batch: int = 8
     q: float = 0.25                      # nominal sampling rate (L = q * N)
     sampler: str = "poisson"             # registered sampler name
@@ -207,7 +208,7 @@ class PrivacySession:
                 f"steps={start + steps}).")
         if dataset is None:
             dataset = dataset_for_config(self.model_cfg, tc.n_data,
-                                         seed=tc.seed)
+                                         tc.seq_len, seed=tc.seed)
         elif getattr(dataset, "n", tc.n_data) != tc.n_data:
             raise ValueError(
                 f"dataset has n={dataset.n} examples but TrainConfig.n_data="

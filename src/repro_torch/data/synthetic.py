@@ -1,8 +1,9 @@
-"""Synthetic labelled images for the paper's ViT config (no downloads).
+"""Synthetic datasets for training without downloads: token streams for the
+LMs and labelled images for the paper's ViT config.
 
-A numpy copy of the reference package's ``ImageDataset``: the same seed gives
-the same images and labels.  Images stay NHWC, as the reference's model
-reads them.
+numpy copies of the reference package's ``TokenDataset`` and
+``ImageDataset``: the same seed gives the same tokens, images and labels.
+Images stay NHWC, as the reference's model reads them.
 """
 from __future__ import annotations
 
@@ -11,14 +12,39 @@ import dataclasses
 import numpy as np
 
 
-def dataset_for_config(cfg, n: int, seed: int = 0):
-    """The synthetic dataset for an ArchConfig's modality family.  The port
-    has the ViT family only."""
+def dataset_for_config(cfg, n: int, seq_len: int, seed: int = 0):
+    """The synthetic dataset for an ArchConfig's modality family (the port
+    has the ViT and the token LMs; ``seq_len`` is ignored by the ViT)."""
     if cfg.family == "vit":
         return ImageDataset(n, size=cfg.image_size, classes=cfg.n_classes,
                             seed=seed)
+    if cfg.family == "dense":
+        return TokenDataset(n, seq_len=seq_len, vocab=cfg.vocab, seed=seed)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; the port trains ViT")
+        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item 5)")
+
+
+@dataclasses.dataclass
+class TokenDataset:
+    """Deterministic synthetic LM corpus: (tokens, labels=next token)."""
+    n: int
+    seq_len: int
+    vocab: int
+    seed: int = 0
+
+    def __post_init__(self):
+        # each row is drawn from its own spawned stream, so a huge n costs
+        # nothing until fetched
+        self._root = np.random.SeedSequence(self.seed)
+
+    def fetch(self, idx: np.ndarray) -> dict:
+        toks = np.stack([self._row(int(i)) for i in idx])
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}
+
+    def _row(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng(self._root.spawn_key + (i,))
+        return rng.integers(0, self.vocab, self.seq_len + 1)
 
 
 @dataclasses.dataclass

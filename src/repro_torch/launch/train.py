@@ -1,10 +1,13 @@
 """End-to-end DP-SGD training driver of the port: a thin CLI over
 :class:`repro_torch.core.session.PrivacySession`.
 
-Usage (full-width ViT-Base on the card)::
+Usage (full-width ViT-Base, then qwen2-0.5b at 1,024 tokens, on the
+card)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-base \\
         --engine masked_fused_stream --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+        --seq-len 1024 --physical 4 --n-data 64 --steps 1
 
 ``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU.
 """
@@ -26,6 +29,8 @@ def main(argv=None) -> dict:
                     help="the reduced config (default: full width)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--n-data", type=int, default=512)
+    ap.add_argument("--seq-len", type=int, default=16,
+                    help="tokens per example (LM architectures)")
     ap.add_argument("--physical", type=int, default=32)
     ap.add_argument("--q", type=float, default=0.125)
     ap.add_argument("--sampler", default="poisson",
@@ -46,6 +51,7 @@ def main(argv=None) -> dict:
         DPConfig(clip_norm=args.clip_norm, engine=args.engine,
                  stream_tile=args.stream_tile),
         TrainConfig(steps=args.steps, n_data=args.n_data,
+                    seq_len=args.seq_len,
                     physical_batch=args.physical, q=args.q,
                     sampler=args.sampler,
                     target_eps=args.target_eps if private else None,

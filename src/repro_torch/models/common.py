@@ -1,29 +1,97 @@
-"""Shared model pieces the ViT uses, built on the DP layer primitives
-(:mod:`repro_torch.core.layers`) so that every parameterised op is
-ghost/BK-clippable, as in the reference package's ``models/common.py``.
+"""Shared model pieces of the ViT and the dense decoder LM, built on the DP
+layer primitives (:mod:`repro_torch.core.layers`) so that every
+parameterised op is ghost/BK-clippable, as in the reference package's
+``models/common.py``.
 
 Each takes ``(tape, name, ..., path)`` as the reference does and follows it
 op for op, so the rounding points match:
 
 * ``layernorm``: mean and variance in f32, ``(x - mu) * rsqrt(var + eps)``,
   cast, then the gain (``scale``) and the bias (``bias``) as two ops.
-* ``attention``: ``q`` is scaled in its own dtype BEFORE ``q kᵀ``, the
-  scores and softmax are f32, the probabilities are cast to ``v``'s dtype,
-  and the output is cast back — the reference's ``_sdpa`` written as matmul
-  plus softmax.
+* ``attention`` (the ViT's): ``q`` is scaled in its own dtype BEFORE
+  ``q kᵀ``, the scores and softmax are f32, the probabilities are cast to
+  ``v``'s dtype, and the output is cast back — the reference's ``_sdpa``
+  written as matmul plus softmax, with one KV head per head and no mask.
 * ``gelu_mlp``: JAX's default GELU is the tanh approximation, so
   ``approximate="tanh"``.
+* ``rmsnorm``: ``x * rsqrt(mean(x²) + eps)`` in f32, cast, then the gain.
+* ``apply_rope``: the angles, ``cos`` and ``sin`` in f32; ``x1 * cos``
+  promotes a bf16 ``x`` to f32 (as JAX promotes bf16 x f32), and the result
+  is cast back once.
+* ``self_attention`` (the LM's): the reference's training branch of
+  ``attention`` — GQA through ``_sdpa`` (the scores in f32, masked to
+  -1e30, an f32 softmax, the probabilities cast to ``v``'s dtype), the
+  causal and sliding-window masks, RoPE and the optional qk-norm.  The
+  reference takes blocked flash attention from ``FLASH_MIN_T`` tokens on;
+  the port has none yet and raises there.
+* ``swiglu``: ``silu(g)`` in f32, cast, then ``* u`` in the activation
+  dtype.
+* ``lm_head_ce``: the head and the per-example mean CE (log-softmax in f32),
+  optionally chunked over T with the head registered as ``shared/head``, so
+  the clipping engines fold the chunk axis as exact parameter re-use.
 
 A layer's parameters ``p`` are the port's path-keyed leaves below the
 layer's own path (``{"wq.w": ..., "wq.b": ...}`` for ``blocks.attn``).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Optional, Tuple
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..core import layers as L
-from ..core.tape import Tape
+from ..core.tape import Tape, scan_blocks
+from ..utils.params import path_key
+
+# Sequences at or above this length take blocked flash attention in the
+# reference (``models/flashattn.py``); the port has not ported it (ROADMAP
+# queue 1, item 2) and raises there rather than approximate
+FLASH_MIN_T = 8192
+
+
+# ---------------------------------------------------------------------------
+# parameter modules: the reference's nested-dict nodes as nn.Modules
+# ---------------------------------------------------------------------------
+
+class Leaf(nn.Module):
+    """One parameter named ``w`` (the reference's ``{"w": ...}`` nodes)."""
+
+    def __init__(self, value: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(value)
+
+
+class Dense(nn.Module):
+    """``w`` (..., din, dout) drawn N(0, 1/din) and an optional zero bias
+    ``b``; leading axes stack layers."""
+
+    def __init__(self, shape: Tuple[int, ...], bias: bool,
+                 gen: torch.Generator, device):
+        super().__init__()
+        din = shape[-2]
+        self.w = nn.Parameter(torch.randn(shape, generator=gen, device=device)
+                              * din ** -0.5)
+        if bias:
+            self.b = nn.Parameter(torch.zeros(shape[:-2] + shape[-1:],
+                                              device=device))
+
+
+def get_path(module: nn.Module, path: str) -> torch.Tensor:
+    """The tensor at a dotted ``path`` below ``module`` (under
+    ``functional_call``, the one swapped in)."""
+    for k in path.split("."):
+        module = getattr(module, k)
+    return module
+
+
+def path_params(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A model's parameters as the port's ``{path: tensor}`` dict in flatten
+    order (detached views sharing the module's storage)."""
+    named = dict(module.named_parameters())
+    return {n: named[n].detach() for n in sorted(named, key=path_key)}
 
 
 def sub_params(p: dict, prefix: str) -> dict:
@@ -77,3 +145,159 @@ def per_example_ce_single(logits: torch.Tensor,
     """logits (B, V), labels (B,) -> (B,) cross entropy."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the dense decoder LM's pieces
+# ---------------------------------------------------------------------------
+
+def rmsnorm(tape: Tape, name: str, x: torch.Tensor, p: dict, *, path: str,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    xhat = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return L.scale(tape, name, xhat.to(x.dtype), p["w"],
+                   param_path=f"{path}.w")
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., T, H, Dh), positions (..., T) integer."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # (Dh/2,)
+    ang = positions[..., None].float() * freqs            # (..., T, Dh/2)
+    cos = torch.cos(ang)[..., None, :]                    # (..., T, 1, Dh/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    causal: bool = True
+    window: int = 0          # 0 = full; >0 = sliding window
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """q (B,T,Hkv,G,Dh), k/v (B,S,Hkv,Dh), mask (B,T,S) or (T,S) bool.
+
+    ``q`` is scaled in its own dtype, both products take their operands in
+    f32 (the reference's f32 ``preferred_element_type`` on bf16 inputs: a
+    bf16 product is exact in f32), and the probabilities are rounded to
+    ``v``'s dtype before the second product."""
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
+    s = torch.einsum("btkgd,bskd->bktgs", (q * scale).float(), k.float())
+    m = (mask[None, None, :, None, :] if mask.dim() == 2
+         else mask[:, None, :, None, :])
+    s = torch.where(m, s, -1e30)
+    probs = torch.softmax(s, dim=-1)
+    o = torch.einsum("bktgs,bskd->btkgd", probs.to(v.dtype).float(),
+                     v.float())
+    return o.to(v.dtype)
+
+
+def _qk_normalize(tape: Tape, scope: str, path: str, p: dict, q, k,
+                  a: AttnCfg):
+    if not a.qk_norm:
+        return q, k
+
+    def rn(nm, x):
+        xf = x.float()
+        xhat = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+        return L.scale(tape, f"{scope}.{nm}", xhat.to(x.dtype), p[f"{nm}.w"],
+                       param_path=f"{path}.{nm}.w")
+    return rn("qn", q), rn("kn", k)
+
+
+def self_attention(tape: Tape, scope: str, path: str, p: dict,
+                   x: torch.Tensor, a: AttnCfg, *,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence self attention (training): ``p`` holds the layer's
+    ``w{q,k,v}.w`` (and ``.b`` with ``a.qkv_bias``), ``wo.w`` and, with
+    ``a.qk_norm``, ``{q,k}n.w``; ``positions`` (B, T) gives RoPE's angles
+    (None: no RoPE)."""
+    B, T, _ = x.shape
+    H, Hkv, Dh = a.n_heads, a.n_kv_heads, a.head_dim
+    if a.causal and T >= FLASH_MIN_T:
+        raise NotImplementedError(
+            f"causal attention over T={T} >= FLASH_MIN_T={FLASH_MIN_T} takes "
+            f"blocked flash attention in the reference, which the port has "
+            f"not ported yet (ROADMAP queue 1, item 2)")
+
+    def proj(nm):
+        return L.dense(tape, f"{scope}.{nm}", x, p[f"{nm}.w"],
+                       p.get(f"{nm}.b"), param_path=f"{path}.{nm}").reshape(
+            B, T, -1, Dh)
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    q, k = _qk_normalize(tape, scope, path, p, q, k, a)
+    if a.use_rope and positions is not None:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    ti = torch.arange(T, device=x.device)[:, None]
+    si = torch.arange(T, device=x.device)[None, :]
+    if a.causal:
+        mask = si <= ti
+        if a.window:
+            mask = mask & (si > ti - a.window)
+    else:
+        mask = torch.ones(T, T, dtype=torch.bool, device=x.device)
+    o = _sdpa(q.reshape(B, T, Hkv, H // Hkv, Dh), k, v, mask)
+    return L.dense(tape, f"{scope}.wo", o.reshape(B, T, H * Dh), p["wo.w"],
+                   param_path=f"{path}.wo")
+
+
+def swiglu(tape: Tape, scope: str, path: str, p: dict,
+           x: torch.Tensor) -> torch.Tensor:
+    g = L.dense(tape, f"{scope}.w1", x, p["w1.w"], param_path=f"{path}.w1")
+    u = L.dense(tape, f"{scope}.w3", x, p["w3.w"], param_path=f"{path}.w3")
+    h = F.silu(g.float()).to(x.dtype) * u
+    return L.dense(tape, f"{scope}.w2", h, p["w2.w"], param_path=f"{path}.w2")
+
+
+def lm_head_ce(tape: Tape, head_w: torch.Tensor, x: torch.Tensor,
+               labels: torch.Tensor, cfg, *, path: str = "head"
+               ) -> torch.Tensor:
+    """The head dense and the (B,) per-example mean CE, chunked over T when
+    ``cfg.ce_chunk`` divides T into several chunks: the full (B, T, V)
+    logits never exist, and the head runs once per chunk under
+    ``shared/head`` in a ``cechunks`` layer stack, so the engines fold the
+    chunk axis as 'uses'."""
+    B, T, D = x.shape
+    ck = cfg.ce_chunk
+    if not ck or T % ck or T <= ck:
+        logits = L.dense(tape, "head", x, head_w, param_path=path)
+        return per_example_ce(logits, labels)
+    nc = T // ck
+    chunks = {"x": x.reshape(B, nc, ck, D).transpose(0, 1),      # (nc,B,ck,D)
+              "labels": labels.reshape(B, nc, ck).transpose(0, 1)}
+
+    def body(sub, c, acc):
+        logits = L.dense(sub, "shared/head", c["x"], head_w, param_path=path)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, c["labels"].long()[..., None])[..., 0]
+        return acc - ll.sum(dim=-1)
+
+    acc = scan_blocks(tape, "cechunks", body, chunks,
+                      x.new_zeros(B, dtype=torch.float32), nc)
+    return acc / T
+
+
+def per_example_ce(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, T, V), labels (B, T) -> (B,) mean CE per example."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean(dim=-1)

@@ -1,0 +1,32 @@
+"""Architecture registry: name -> ArchConfig, family -> model class.
+
+The port builds the ``vit`` and ``dense`` families; every other family of
+the reference's registry raises until ROADMAP queue 1, item 5 ports it.
+"""
+from __future__ import annotations
+
+from ..configs import ArchConfig, get_config
+from .transformer import DenseLM
+from .vit import ViT
+
+__all__ = ["ARCH_IDS", "build", "get_config"]
+
+# the reference's architectures; get_config finds the ported ones
+ARCH_IDS = [
+    "olmoe-1b-7b", "llama-3.2-vision-90b", "deepseek-67b",
+    "deepseek-v2-lite-16b", "qwen2-0.5b", "zamba2-1.2b", "qwen3-1.7b",
+    "mamba2-1.3b", "whisper-base", "llama3.2-3b", "vit-base",
+]
+
+_FAMILIES = {"vit": ViT, "dense": DenseLM}
+
+
+def build(cfg: ArchConfig, *, device, seed: int = 0):
+    """The model of ``cfg``'s family on ``device``, initialised from
+    ``seed``."""
+    cls = _FAMILIES.get(cfg.family)
+    if cls is None:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item "
+            f"5); the port builds {sorted(_FAMILIES)}")
+    return cls(cfg, device=device, seed=seed)

@@ -23,50 +23,30 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core import layers as L
 from ..core.tape import Tape, scan_blocks
-from ..utils.params import path_key
 from . import common as cm
-
-
-class _Leaf(nn.Module):
-    """One parameter named ``w`` (the reference's ``{"w": ...}`` nodes)."""
-
-    def __init__(self, value: torch.Tensor):
-        super().__init__()
-        self.w = nn.Parameter(value)
-
-
-class _Dense(nn.Module):
-    def __init__(self, shape, bias: bool, gen: torch.Generator, device):
-        super().__init__()
-        din = shape[-2]
-        self.w = nn.Parameter(torch.randn(shape, generator=gen, device=device)
-                              * din ** -0.5)
-        if bias:
-            self.b = nn.Parameter(torch.zeros(shape[:-2] + shape[-1:],
-                                              device=device))
 
 
 class _LayerNorm(nn.Module):
     def __init__(self, shape, device):
         super().__init__()
-        self.g = _Leaf(torch.ones(shape, device=device))
-        self.b = _Leaf(torch.zeros(shape, device=device))
+        self.g = cm.Leaf(torch.ones(shape, device=device))
+        self.b = cm.Leaf(torch.zeros(shape, device=device))
 
 
 class _Attention(nn.Module):
     def __init__(self, lead, d, h, dh, gen, device):
         super().__init__()
-        self.wq = _Dense(lead + (d, h * dh), True, gen, device)
-        self.wk = _Dense(lead + (d, h * dh), True, gen, device)
-        self.wv = _Dense(lead + (d, h * dh), True, gen, device)
-        self.wo = _Dense(lead + (h * dh, d), False, gen, device)
+        self.wq = cm.Dense(lead + (d, h * dh), True, gen, device)
+        self.wk = cm.Dense(lead + (d, h * dh), True, gen, device)
+        self.wv = cm.Dense(lead + (d, h * dh), True, gen, device)
+        self.wo = cm.Dense(lead + (h * dh, d), False, gen, device)
 
 
 class _GeluMLP(nn.Module):
     def __init__(self, lead, d, d_ff, gen, device):
         super().__init__()
-        self.w1 = _Dense(lead + (d, d_ff), True, gen, device)
-        self.w2 = _Dense(lead + (d_ff, d), True, gen, device)
+        self.w1 = cm.Dense(lead + (d, d_ff), True, gen, device)
+        self.w2 = cm.Dense(lead + (d_ff, d), True, gen, device)
 
 
 class _Blocks(nn.Module):
@@ -81,12 +61,6 @@ class _Blocks(nn.Module):
         self.mlp = _GeluMLP(lead, d, cfg.d_ff, gen, device)
 
 
-def _get(module: nn.Module, path: str) -> torch.Tensor:
-    for k in path.split("."):
-        module = getattr(module, k)
-    return module
-
-
 class ViT(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device, seed: int = 0):
         super().__init__()
@@ -96,21 +70,20 @@ class ViT(nn.Module):
         self.n_patches = (cfg.image_size // cfg.patch) ** 2
         gen = torch.Generator(device=device).manual_seed(seed)
         d, pd = cfg.d_model, cfg.patch * cfg.patch * 3
-        self.patch = _Dense((pd, d), True, gen, device)
-        self.cls = _Leaf(torch.zeros(1, d, device=device))
-        self.pos = _Leaf(torch.randn(self.n_patches + 1, d, generator=gen,
+        self.patch = cm.Dense((pd, d), True, gen, device)
+        self.cls = cm.Leaf(torch.zeros(1, d, device=device))
+        self.pos = cm.Leaf(torch.randn(self.n_patches + 1, d, generator=gen,
                                      device=device) * 0.02)
         self.blocks = _Blocks(cfg, gen, device)
         self.lnf = _LayerNorm((d,), device)
-        self.head = _Dense((d, cfg.n_classes), True, gen, device)
+        self.head = cm.Dense((d, cfg.n_classes), True, gen, device)
         self._block_leaves = tuple(n for n, _ in
                                    self.blocks.named_parameters())
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The model's parameters as the port's ``{path: tensor}`` dict in
         flatten order (detached views sharing the module's storage)."""
-        named = dict(self.named_parameters())
-        return {n: named[n].detach() for n in sorted(named, key=path_key)}
+        return cm.path_params(self)
 
     def _patchify(self, images: torch.Tensor) -> torch.Tensor:
         B, S, _, C = images.shape
@@ -145,7 +118,7 @@ class ViT(nn.Module):
             return x + cm.gelu_mlp(sub, "mlp", "blocks.mlp",
                                    cm.sub_params(p, "mlp"), h)
 
-        stacked = {n: _get(self.blocks, n) for n in self._block_leaves}
+        stacked = {n: cm.get_path(self.blocks, n) for n in self._block_leaves}
         x = scan_blocks(tape, "blocks", body, stacked, x, cfg.n_layers)
         x = cm.layernorm(tape, "lnf", x, {"g.w": self.lnf.g.w,
                                           "b.w": self.lnf.b.w}, path="lnf")
@@ -160,9 +133,3 @@ class ViT(nn.Module):
                                             {"tape": tape})
         return cm.per_example_ce_single(logits, batch["label"])
 
-
-def build(cfg: ArchConfig, *, device, seed: int = 0) -> ViT:
-    if cfg.family != "vit":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port trains ViT")
-    return ViT(cfg, device=device, seed=seed)
