@@ -135,18 +135,16 @@ GHOST_NORM_F32 = ("head", "attn_qkvo", "ragged")
 # the CPU; 4.7e-4 of max |acc| on the card).  The "ghost" stream source:
 # masked_pe's own grads under coefficients from other norms (5.9e-7 on the
 # card).  The per-example norms relative: the same bf16 dY on both sides
-# (2e-6 on the CPU, 1.3e-6 on the card)
-RECORD_PE_REL_TOL = {"masked_ghost": 5e-2, "masked_bk": 5e-3,
-                     "masked_fused_stream_ghost": 1e-4}
-RECORD_LEAF_REL_TOL = {"masked_ghost": 1e-1, "masked_bk": 2e-2,
-                       "masked_fused_stream_ghost": 1e-3}
+# (2e-6 on the CPU, 1.3e-6 on the card).  "forced": every dense layer's
+# ghost norm through the kernel against the einsum path, relative: the same
+# f32 products summed in other orders
 LEAF_FLOOR = 1e-3
-RECORD_NORM_REL_TOL = 1e-3
-# every dense layer's ghost norm through the kernel against the einsum path,
-# relative: the same f32 products summed in other orders
-FORCED_PATH_REL_TOL = 1e-4
-VIT_LIMITS = {"pe": RECORD_PE_REL_TOL, "leaf": RECORD_LEAF_REL_TOL,
-              "norms": RECORD_NORM_REL_TOL, "forced": FORCED_PATH_REL_TOL}
+VIT_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 5e-3,
+           "masked_fused_stream_ghost": 1e-4},
+    "leaf": {"masked_ghost": 1e-1, "masked_bk": 2e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
 
 # phase 5: full-width qwen2-0.5b (24 layers, d 896, 14 heads, 2 KV heads,
 # d_ff 4864, vocab 151,936, bf16 activations, f32 params) at 1,024 tokens
@@ -162,7 +160,7 @@ DENSELM_GHOST_SHAPES = {"denselm_wq_wo": (4, 1024, 896, 896),
                         "denselm_wk_wv": (4, 1024, 896, 128)}
 # DenseLM's own limits for the record engines against masked_pe on one
 # physical batch, set before its first run on the card from the CPU's bf16
-# measurements (compare_record_engines with no limits, on a physical batch
+# measurements (compare_record_engines' values, on a physical batch
 # of 4 of reduced qwen2-0.5b at T = 128 and of a two-layer cut at full
 # width, d 896, with a vocab of 4,096 at T = 256; seeds 0 and 1) and from
 # the card-over-CPU ratios the ViT showed (ghost: 1.5x of max |acc|, 6x on
@@ -689,9 +687,11 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     tc = TrainConfig(**train_kw)
     session = PrivacySession.from_config(
         arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device)
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
+        retries = alloc_retries(device)
     # one accumulate per physical batch: one norm pass of a record engine
     accumulate, passes = session._accumulate, []
 
@@ -705,18 +705,18 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
         w.launches = 0
     t0 = time.perf_counter()
     out = session.fit()
-    if device.type == "cuda":
+    if cuda:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     # a wrapper counts where it launches its kernel: on the card only
-    for name in ENGINE_KERNELS[engine] if device.type == "cuda" else ():
+    for name in ENGINE_KERNELS[engine] if cuda else ():
         assert launches[name] > 0, f"fit() with {engine} launched {name} " \
                                    f"no time"
     session._accumulate = accumulate
     record_based = session.describe()["engine_traits"]["record_based"]
     ghost_launches = direct_denses * len(passes) if record_based else 0
-    if device.type == "cuda":
+    if cuda:
         # the update is one launch per step over every leaf
         assert launches["noisy_sgd_update"] == tc.steps, (engine, launches)
         assert launches["ghost_norm_dense"] == ghost_launches, (
@@ -739,9 +739,30 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
               "engine_traits": session.describe()["engine_traits"],
               "physical_batches": len(passes),
               "launches": launches,
-              "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
-                                 if device.type == "cuda" else None)}
+              **(memory_record(device, retries) if cuda
+                 else {"peak_mem_bytes": None})}
     return session, record, launches
+
+
+def alloc_retries(dev) -> int:
+    """The caching allocator's count of cudaMalloc calls it retried after
+    freeing its cache: each one synchronises the card and marks a run
+    that came near the memory's end."""
+    import torch
+    return torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+
+
+def memory_record(dev, retries_before: int) -> dict:
+    """Peak allocated and reserved bytes since the last reset, the card's
+    total, what the peak leaves of it, and the allocator's retries since
+    ``retries_before``."""
+    import torch
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peak = torch.cuda.max_memory_allocated(dev)
+    return {"peak_mem_bytes": peak,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+            "total_mem_bytes": total, "headroom_bytes": total - peak,
+            "alloc_retries": alloc_retries(dev) - retries_before}
 
 
 def _peak_since(dev, fn):
@@ -904,7 +925,7 @@ def _fixed_batch(session):
                           (np.arange(B) < B - B // 4).astype(np.float32))
 
 
-def compare_record_engines(session, limits=VIT_LIMITS):
+def compare_record_engines(session, limits):
     """On one fixed physical batch: masked_fused (bitwise), masked_ghost,
     masked_bk and the streaming engine's "ghost" norm source against
     masked_pe, and every dense layer's ghost norm through the kernel
@@ -1044,6 +1065,7 @@ def time_accumulate(session, iters=3):
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
+            retries = alloc_retries(dev)
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -1052,8 +1074,9 @@ def time_accumulate(session, iters=3):
                 torch.cuda.synchronize(dev)
             times.append(1e3 * (time.perf_counter() - t0))
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
-                  "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
-                                     if cuda else None)}
+                  "all_ms": times,
+                  **(memory_record(dev, retries) if cuda
+                     else {"peak_mem_bytes": None})}
         del acc_fn
         if cuda:
             torch.cuda.empty_cache()
@@ -1306,7 +1329,7 @@ def main() -> int:
                 session, rec["stream_tile"] or tile)
             log(f"masked_pe vs masked_fused_stream: "
                 f"{json.dumps(record['engines'])}")
-    record["record_engines"] = compare_record_engines(session)
+    record["record_engines"] = compare_record_engines(session, VIT_LIMITS)
     torch.cuda.empty_cache()
     record["accumulate"] = time_accumulate(session)
     log(f"accumulate of one physical batch of "

@@ -64,6 +64,12 @@ def _lm(T=128, **over):
              "labels": torch.from_numpy(toks[:, 1:])})
 
 
+def _ref_ghost_norms(rloss, rparams, rbatch):
+    """The reference's ghost norms, jitted as its step builders run them."""
+    return jax.jit(lambda p, b: ref_clipping.ghost_norms(rloss, p, b))(
+        rparams, rbatch)
+
+
 def _hold(got, rsum, tol=2e-5):
     want = flatten_tree(jax.tree.map(np.asarray, rsum))
     assert set(want) == set(got)
@@ -85,7 +91,7 @@ def test_both_norm_paths_run_at_t128(monkeypatch):
                         or gn.ghost_norm_dense(x, d))
     sq, _ = clipping.ghost_norms(loss, params, batch)
     assert sorted(calls) == sorted([(128, 64)] * 4 + [(128, 97)])
-    want, _ = ref_clipping.ghost_norms(rloss, rparams, rbatch)
+    want, _ = _ref_ghost_norms(rloss, rparams, rbatch)
     np.testing.assert_allclose(sq.numpy(), np.asarray(want), rtol=2e-5)
 
 
@@ -93,8 +99,8 @@ def test_both_norm_paths_run_at_t128(monkeypatch):
 def test_engines_match_reference(engine):
     rloss, rparams, rbatch, loss, params, batch = _lm()
     kw = {"tile": 4} if engine == "masked_fused_stream" else {}
-    rsum, raux = ref_clipping.ENGINES[engine](rloss, rparams, rbatch,
-                                              jnp.asarray(MASK), 1.0, **kw)
+    rsum, raux = jax.jit(lambda p, b, m: ref_clipping.ENGINES[engine](
+        rloss, p, b, m, 1.0, **kw))(rparams, rbatch, jnp.asarray(MASK))
     if engine == "masked_bk":
         kw = {"check_coverage": True}
     tsum, taux = clipping.resolve_engine(engine)(
@@ -138,16 +144,18 @@ def test_chunked_head_matches_reference():
     rloss, rparams, rbatch, loss, params, batch = _lm(T=32, ce_chunk=8)
     np.testing.assert_allclose(
         loss(params, batch).numpy(),
-        np.asarray(rloss(rparams, rbatch, RefTape())), rtol=0, atol=2e-5)
+        np.asarray(jax.jit(lambda p, b: rloss(p, b, RefTape()))(rparams,
+                                                                 rbatch)),
+        rtol=0, atol=2e-5)
     _, records, specs, _ = clipping._eps_backward(loss, params, batch)
     assert specs["cechunks/shared/head"].stack == ("uses",)
     assert "head" not in specs
     assert len(records["cechunks/shared/head"]["x"]) == 4
     sq, _ = clipping.ghost_norms(loss, params, batch)
-    want, _ = ref_clipping.ghost_norms(rloss, rparams, rbatch)
+    want, _ = _ref_ghost_norms(rloss, rparams, rbatch)
     np.testing.assert_allclose(sq.numpy(), np.asarray(want), rtol=2e-5)
-    rsum, _ = ref_clipping.ENGINES["masked_bk"](rloss, rparams, rbatch,
-                                                jnp.asarray(MASK), 1.0)
+    rsum, _ = jax.jit(lambda p, b, m: ref_clipping.ENGINES["masked_bk"](
+        rloss, p, b, m, 1.0))(rparams, rbatch, jnp.asarray(MASK))
     tsum, _ = clipping.resolve_engine("masked_bk")(
         loss, params, batch, torch.from_numpy(MASK), 1.0,
         check_coverage=True)
