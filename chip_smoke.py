@@ -57,11 +57,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                on one physical batch the record engines against
                ``masked_pe`` under DenseLM's own limits (``DENSELM_LIMITS``);
                the host cost of one norm pass; one accumulate per engine
-               against ``nonprivate``; and the training CLI at 1,024 tokens.
+               against ``nonprivate``; and the training CLI at 1,024 tokens;
+6. lifecycle — full-width ViT-Base again: the noise-only body of
+               ``noisy_sgd_update`` (the unfused update's draw) against
+               ``threefry_normal`` on every leaf, one launch per call, timed
+               beside its bound; one momentum-SGD update through the fused
+               kernel and through ``fuse=False`` from the same state and
+               seeds, bitwise; ``masked_fused`` at 4 microbatches against 1
+               (``clip_accum`` once per microbatch); 2-step fits with AdamW
+               and with Nesterov, each launching the noise-only body once
+               per step and the fused form never; a 4-step
+               ``masked_fused_stream`` fit with ``checkpoint_async`` every 2
+               steps and a fresh session restored from step 2, bitwise
+               (params sha256, ε ``float.hex``), with each save's size, copy
+               and commit times and the fit's checkpoint waits; the chaos
+               harness killing subprocess runs at ``ckpt/mid_d2h``,
+               ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
+               each resumed bitwise from a snapshot; and the paper-protocol
+               twin's four engines at full width.
 
 The line before the last lists the kernels as JSON (launches summed over
-every ``fit()``, ViT's and DenseLM's; times at ViT-Base's main-path
-shapes, DenseLM's in the record); the last line is
+every ``fit()``, ViT's, DenseLM's and the lifecycle's, the noise-only body
+as ``noisy_sgd_update``'s ``noise_only`` record; times at ViT-Base's
+main-path shapes, DenseLM's in the record); the last line is
 ``{"ok": true, "device": {...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero and prints no result.
@@ -661,32 +679,50 @@ ENGINE_KERNELS = {
 
 
 def kernel_wrappers():
-    """name -> the wrapper whose ``launches`` counts that kernel."""
+    """name -> the wrapper whose ``launches`` counts that kernel
+    ("noise_only": the noise-only body of ``noisy_sgd_update``)."""
     from repro_torch.kernels import clip_accum as ca
     from repro_torch.kernels import ghost_norm as gn
     from repro_torch.kernels import noisy_update as nu
     return {"noisy_sgd_update": nu.noisy_sgd_update,
+            "noise_only": nu.tree_noise,
             "clip_accum_inplace": ca.clip_accum_inplace,
             "ghost_norm_dense": gn.ghost_norm_dense,
             "clip_accum": ca.clip_accum}
 
 
+def zero_counts():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
 def run_fit(arch, device, train_kw, engine="masked_fused_stream",
-            direct_denses=0):
-    """fit() with ``engine``; every kernel counter is set to 0 just before
-    and read just after.  ``direct_denses`` is the number of dense layers
-    the Mixed-Ghost rule sends to the kernel in one norm pass: a record
-    engine must launch ``ghost_norm_dense`` exactly that many times per
-    physical batch (one norm pass each), the other engines never.
-    Returns (session, record, launches)."""
+            direct_denses=0, optimizer=None, fit_kw=None):
+    """fit() with ``engine`` (and ``optimizer``, else the TrainConfig's);
+    every kernel counter is set to 0 just before and read just after.  The
+    update launches ``noisy_sgd_update`` once per step when the optimizer
+    is fused, else its noise-only body once per step and the fused form
+    never.  ``direct_denses`` is the number of dense layers the Mixed-Ghost
+    rule sends to the kernel in one norm pass: a record engine must launch
+    ``ghost_norm_dense`` exactly that many times per physical batch (one
+    norm pass each), the other engines never.  Returns (session, record,
+    launches)."""
     import torch
-    from repro_torch.core import DPConfig
+    from repro_torch.core import DPConfig, fused_sgd
     from repro_torch.core.session import PrivacySession, TrainConfig
     from repro_torch.privacy import epsilon_for
 
     tc = TrainConfig(**train_kw)
     session = PrivacySession.from_config(
-        arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device)
+        arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device,
+        optimizer=optimizer)
+    fused = fused_sgd(session.optimizer)
+    update_kernel, idle = (("noisy_sgd_update", "noise_only") if fused
+                           else ("noise_only", "noisy_sgd_update"))
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -700,17 +736,16 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
         return accumulate(*args)
 
     session._accumulate = counted
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
-    out = session.fit()
+    out = session.fit(**(fit_kw or {}))
     if cuda:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_counts()
     # a wrapper counts where it launches its kernel: on the card only
-    for name in ENGINE_KERNELS[engine] if cuda else ():
+    needed = [k for k in ENGINE_KERNELS[engine] if k != "noisy_sgd_update"]
+    for name in [*needed, update_kernel] if cuda else ():
         assert launches[name] > 0, f"fit() with {engine} launched {name} " \
                                    f"no time"
     session._accumulate = accumulate
@@ -718,7 +753,8 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     ghost_launches = direct_denses * len(passes) if record_based else 0
     if cuda:
         # the update is one launch per step over every leaf
-        assert launches["noisy_sgd_update"] == tc.steps, (engine, launches)
+        assert launches[update_kernel] == tc.steps, (engine, launches)
+        assert launches[idle] == 0, (engine, launches)
         assert launches["ghost_norm_dense"] == ghost_launches, (
             engine, launches, len(passes), direct_denses)
     losses = [h["loss"] for h in out["history"]]
@@ -730,7 +766,9 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
                       tc.resolved_delta)
     assert out["final_eps"] == eps, (out["final_eps"], eps)
     assert eps <= tc.target_eps, eps
-    record = {"engine": engine, "steps": tc.steps,
+    record = {"engine": engine, "optimizer": session.optimizer.kind,
+              "nesterov": bool(session.optimizer.hyper.get("nesterov")),
+              "steps": tc.steps,
               "history": out["history"], "sigma": out["sigma"],
               "final_eps": out["final_eps"], "fit_seconds": seconds,
               "examples": sum(h["logical_batch"] for h in out["history"]),
@@ -1244,6 +1282,342 @@ def run_denselm(device, timer):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 6: the training lifecycle on full-width ViT-Base
+# --------------------------------------------------------------------------
+
+# the fits of phase 4's configuration (n 512, q 0.125, physical batch 32)
+LIFECYCLE_TRAIN = dict(n_data=512, q=0.125, physical_batch=32,
+                       target_eps=8.0, smoke=False)
+# masked_fused at microbatches=4 against microbatches=1 on one batch of 32,
+# as a share of max |acc|: each microbatch takes its per-example grads at
+# width 8 instead of 32, the width question of the streaming tile, so the
+# streaming tile's bound
+MICROBATCH_REL_TOL = STREAM_PE_REL_TOL
+MICROBATCHES = 4
+# the chaos cases: full-width ViT-Base, masked_fused_stream, 6 steps with a
+# checkpoint every 2, the reference's arming for the checkpoint points (on
+# the second save); the other four training points run on the CPU
+# (tests/test_torch_chaos.py).  Each case must resume from a snapshot, not
+# fall back to a fresh run.  fit/step_end is armed at step 5, not the
+# reference's 3: a 0.69 GB commit takes about 2 s, longer than step 3, so
+# a kill at step 3 finds no durable snapshot and the "resume" is a fresh
+# run; by step 5 the save at step 4 has waited for step 2's commit
+CHAOS_CASE = dict(arch="vit-base", full=True, engine="masked_fused_stream",
+                  steps=6, ckpt_every=2, n_data=128, q=0.125,
+                  physical_batch=16, seq_len=16, sigma=0.8, timeout=300)
+CHAOS_POINTS = ("ckpt/mid_d2h", "ckpt/after_state_before_manifest",
+                "fit/step_end")
+CHAOS_AT = {"fit/step_end": 5}
+# the protocol twin's arguments beyond --device (none: full width)
+PROTOCOL_ARGS = ()
+# bytes and operations per element of the noise-only body: 4 B written;
+# Threefry's int32 operations; Box-Muller's f32 ones (log, sqrt and cos
+# counted as one each, and its 5 products and sums)
+NOISE_ONLY_F32_OPS = 8
+
+
+def check_noise_only(view, device, timer, seed=(0x1234, 0xBEEF)):
+    """The noise-only body of noisy_sgd_update (``tree_noise``) over every
+    leaf of ``view`` against the plain ``threefry_normal`` per leaf, within
+    NORMAL_ULP_BOUND, the alignment tail zero, one launch (and one device
+    kernel) per call; its time beside its bound and the plain version's.
+    No library call draws Threefry: ``library_ms`` is None."""
+    import torch
+    from repro_torch.kernels import noisy_update as nu
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    params = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
+              for i, nm in enumerate(view.names)}
+    z = torch.full((view.total,), float("nan"), device=device)
+    before = nu.tree_noise.launches
+    nu.tree_noise(params, seed, view=view, out=z)
+    checks = {"launches_per_call": nu.tree_noise.launches - before}
+    ulp, err = 0, 0.0
+    for i in range(len(view.names)):
+        o, n = view.offsets[i], view.sizes[i]
+        zp = nu.threefry_normal(nu.leaf_seed(seed, i), n, device)
+        ulp = max(ulp, max_ulp(z[o:o + n], zp))
+        err = max(err, float((z[o:o + n] - zp).abs().max()))
+        del zp
+    checks.update(max_ulp=ulp, tail_zero=not bool(
+        z[view.n_params:].any()))
+    if device.type == "cuda":
+        assert checks["launches_per_call"] == 1, checks
+        checks["device_kernels_per_call"] = device_kernels(
+            lambda: nu.tree_noise(params, seed, view=view, out=z))
+        assert checks["device_kernels_per_call"] is None or len(
+            checks["device_kernels_per_call"]) == 1, checks
+    assert ulp <= NORMAL_ULP_BOUND and checks["tail_zero"], checks
+
+    def plain():
+        for i in range(len(view.names)):
+            o, n = view.offsets[i], view.sizes[i]
+            z[o:o + n] = nu.threefry_normal(nu.leaf_seed(seed, i), n, device)
+
+    n_par = view.n_params
+    table, rows, _ = nu.device_leaf_table(
+        view, tuple(params[nm].data_ptr() for nm in view.names), device)
+    bms, by = bound_ms(4.0 * n_par + table.numel() * 8,
+                       NOISE_ONLY_F32_OPS * n_par, THREEFRY_I32_OPS * n_par)
+    timing = {"ms": timer(lambda: nu.tree_noise(params, seed, view=view,
+                                                out=z), 20),
+              "plain_ms": timer(plain, 3), "bound_ms": bms, "bound_by": by,
+              "library_ms": None, "max_abs_err": err}
+    return checks, timing
+
+
+def _clone_state(state):
+    import dataclasses
+    return dataclasses.replace(
+        state, params={k: v.clone() for k, v in state.params.items()},
+        opt_state={k: v.clone() if hasattr(v, "clone") else v
+                   for k, v in state.opt_state.items()},
+        grad_acc=state.grad_acc.clone(), seen=state.seen.clone())
+
+
+def fused_vs_unfused(session):
+    """One momentum-SGD update of the session's state through the fused
+    kernel and through the generic path (noise-only body + the optimizer's
+    rounded ops), from the same state and seeds: params and momentum
+    bitwise; the generic path launches the noise-only body once and the
+    fused form never."""
+    import torch
+    from repro_torch.core.engine import build_update_fn
+    from repro_torch.utils.params import FlatGradView
+
+    st = session.state
+    view = FlatGradView.for_params(st.params)
+    batch, mask = _fixed_batch(session)
+    st.grad_acc.zero_()
+    session._accumulate(st, batch, mask)
+    a, b = _clone_state(st), _clone_state(st)
+    st.grad_acc.zero_()
+    st.seen.zero_()
+    zero_counts()
+    build_update_fn(session.optimizer, session.dp)(a)
+    fused = read_counts()
+    zero_counts()
+    build_update_fn(session.optimizer, session.dp, fuse=False)(b)
+    generic = read_counts()
+    fa, fb = view.flatten(a.params), view.flatten(b.params)
+    res = {"params_bitwise": same_bits(fa, fb),
+           "momentum_bitwise": same_bits(a.opt_state["mom"],
+                                         b.opt_state["mom"]),
+           "max_abs_err": float((fa - fb).abs().max()),
+           "moved": float((fa - view.flatten(st.params)).abs().max()),
+           "fused_launches": fused, "generic_launches": generic}
+    assert res["params_bitwise"] and res["momentum_bitwise"], res
+    assert res["moved"] > 0, res
+    if st.grad_acc.is_cuda:
+        assert fused["noisy_sgd_update"] == 1 and fused["noise_only"] == 0
+        assert generic["noise_only"] == 1 and \
+            generic["noisy_sgd_update"] == 0, res
+    del a, b, fa, fb
+    if st.grad_acc.is_cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
+def compare_microbatches(session):
+    """masked_fused with MICROBATCHES microbatches against one, on the
+    fixed physical batch (the accumulator's share of max |acc|); clip_accum
+    launches once per microbatch."""
+    import dataclasses
+    from repro_torch.core.engine import build_accumulate_fn
+
+    batch, mask = _fixed_batch(session)
+    st = session.state
+    sums, launches = {}, {}
+    for m in (1, MICROBATCHES):
+        acc = build_accumulate_fn(session.loss_fn, dataclasses.replace(
+            session.dp, engine="masked_fused", microbatches=m))
+        st.grad_acc.zero_()
+        zero_counts()
+        acc(st, batch, mask)
+        launches[m] = read_counts()["clip_accum"]
+        sums[m] = st.grad_acc.to("cpu", copy=True)
+    st.grad_acc.zero_()
+    st.seen.zero_()
+    top = float(sums[1].abs().max())
+    rel = float((sums[MICROBATCHES] - sums[1]).abs().max()) / top
+    res = {"microbatches": MICROBATCHES, "rel_err_of_max_acc": rel,
+           "tol": MICROBATCH_REL_TOL, "clip_accum_launches": launches}
+    assert rel <= MICROBATCH_REL_TOL, res
+    if st.grad_acc.is_cuda:
+        assert launches == {1: 1, MICROBATCHES: MICROBATCHES}, res
+    return res
+
+
+def _manifest_copy(src_dir, dst_dir, step):
+    """A checkpoint directory holding only ``src_dir``'s snapshot of
+    ``step`` (its manifest and state blob)."""
+    import os
+    import shutil
+    os.makedirs(dst_dir, exist_ok=True)
+    for name in sorted(os.listdir(src_dir)):
+        if name.startswith("manifest-"):
+            rec = json.loads((Path(src_dir) / name).read_text())
+            if rec["step"] == step:
+                for f in (name, rec["state"]):
+                    shutil.copyfile(Path(src_dir) / f, Path(dst_dir) / f)
+                return rec
+    raise AssertionError(f"no snapshot of step {step} in {src_dir}")
+
+
+def checkpoint_resume(device, work):
+    """A 4-step masked_fused_stream fit with checkpoint_async every 2
+    steps, then a fresh session that restores step 2 and runs 2 more:
+    params sha256 and ε (``float.hex``) equal.  Records each save's size,
+    its device->host copy and commit times, the fit's checkpoint waits and
+    any step the writer delayed."""
+    import warnings
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.obs import ObsConfig
+    from repro_torch.resilience.chaos import outcome
+
+    tc = TrainConfig(**dict(LIFECYCLE_TRAIN, steps=4))
+    dp = DPConfig(engine="masked_fused_stream", clip_norm=4.63)
+    ck, ck2 = str(work / "ck"), str(work / "ck-step2")
+    s = PrivacySession.from_config("vit-base", dp, tc, device=device,
+                                   obs=ObsConfig(mode="events"))
+    zero_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        s.fit(ckpt=ck, ckpt_every=2)
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = outcome(s)
+    waits = s.obs.hists["fit/ckpt_wait"]
+    res = {"fit_seconds": fit_s, "launches": launches,
+           "stream_tile": s.describe()["stream_tile"],
+           "saves": s._ckpt_writer.records,
+           "ckpt_wait_s": list(waits._ring),
+           "ckpt_wait_exceeded": s.obs.counters.get(
+               "fit/ckpt_wait_exceeded", 0),
+           "warnings": [str(w.message) for w in caught
+                        if "checkpoint wait" in str(w.message)],
+           "uninterrupted": want}
+    del s
+    _manifest_copy(ck, ck2, 2)
+    r = PrivacySession.restore(ck2, "vit-base", dp, tc, device=device)
+    zero_counts()
+    r.fit(steps=2)
+    for k, v in read_counts().items():
+        launches[k] += v
+    got = outcome(r)
+    res.update(resumed=got, restored_tile=r.describe()["stream_tile"],
+               match=(got["params_sha256"] == want["params_sha256"]
+                      and got["eps_hex"] == want["eps_hex"]
+                      and got["step"] == want["step"] == 4))
+    assert res["match"], res
+    assert [rec["step"] for rec in res["saves"]] == [2, 4], res
+    del r
+    return res
+
+
+def run_chaos(work, device):
+    """run_case in subprocesses on ``device`` for CHAOS_POINTS, one shared
+    baseline: each resumed run bitwise equal to the uninterrupted one."""
+    import dataclasses
+    from repro_torch.resilience import chaos
+    out, baseline = {}, None
+    for point in CHAOS_POINTS:
+        spec = chaos.DEFAULT_ARMING[point]
+        if point in CHAOS_AT:
+            spec = dataclasses.replace(spec, at=CHAOS_AT[point])
+        t0 = time.perf_counter()
+        rec = chaos.run_case(point, workdir=str(work), spec=spec,
+                             device=device.type, baseline_out=baseline,
+                             **CHAOS_CASE)
+        rec["seconds"] = time.perf_counter() - t0
+        baseline = str(work / "baseline.json")
+        out[point] = {k: rec.get(k) for k in (
+            "spec", "match", "fired", "crash_returncode", "seconds",
+            "detail", "resumed", "baseline")}
+        log(f"chaos {point}: {json.dumps(out[point])}")
+        assert rec["fired"] and rec["match"], rec
+        assert rec["resumed"]["resumed_from"] is not None, rec
+    return out
+
+
+def run_protocol_twin(device, extra_args=()):
+    """The paper-protocol twin at full width through its module's main();
+    kernel counters set to 0 just before and read just after."""
+    from repro_torch.examples import paper_protocol_vit
+    zero_counts()
+    t0 = time.perf_counter()
+    res = paper_protocol_vit.main(["--device", device.type, *extra_args])
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    for eng, r in res.items():
+        assert math.isfinite(r["final_loss"]) and r["throughput_ex_s"] > 0, r
+        if eng != "nonprivate":
+            assert r["eps"] <= 8.0 + 1e-3, r
+    # four engines (nonprivate's update is the noise-free form) x 4 steps
+    if device.type == "cuda":
+        assert launches["noisy_sgd_update"] == 4 * 4, launches
+        assert launches["ghost_norm_dense"] > 0, launches
+    return {"engines": res, "seconds": seconds, "launches": launches}
+
+
+def run_lifecycle(device, timer, view):
+    """Phase 6 (see the module docstring)."""
+    import shutil
+
+    import torch
+    from repro_torch.optim import sgd
+
+    res = {}
+    work = ROOT / "build" / "chip_smoke_lifecycle"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    try:
+        res["noise_only"] = check_noise_only(view, device, timer)
+        log(f"noise_only: {json.dumps(res['noise_only'])}")
+        torch.cuda.empty_cache()
+        session, rec, launches = run_fit(
+            "vit-base", device, dict(LIFECYCLE_TRAIN, steps=1),
+            "masked_fused_stream", direct_denses=1)
+        res["fused_vs_unfused"] = fused_vs_unfused(session)
+        log(f"fused vs fuse=False: {json.dumps(res['fused_vs_unfused'])}")
+        res["microbatches"] = compare_microbatches(session)
+        log(f"microbatches: {json.dumps(res['microbatches'])}")
+        fits = {"sgd_fit_for_the_comparisons": rec}
+        del session
+        for label in ("adamw", "nesterov"):
+            torch.cuda.empty_cache()
+            train = dict(LIFECYCLE_TRAIN, steps=2,
+                         **({"optimizer": "adamw", "lr": 1e-4}
+                            if label == "adamw" else {}))
+            optimizer = (sgd(1e-3, momentum=0.9, nesterov=True)
+                         if label == "nesterov" else None)
+            session, rec, _ = run_fit("vit-base", device, train,
+                                      "masked_fused_stream",
+                                      direct_denses=1, optimizer=optimizer)
+            if device.type == "cuda":
+                assert rec["launches"]["noise_only"] == 2, rec
+            fits[label] = rec
+            log(f"fit {label}: {json.dumps(rec)}")
+            del session
+        res["fits"] = fits
+        torch.cuda.empty_cache()
+        res["checkpoint"] = checkpoint_resume(device, work)
+        log(f"checkpoint + resume: {json.dumps(res['checkpoint'])}")
+        torch.cuda.empty_cache()
+        res["chaos"] = run_chaos(work / "chaos", device)
+        torch.cuda.empty_cache()
+        res["protocol"] = run_protocol_twin(device, PROTOCOL_ARGS)
+        log(f"protocol twin: {json.dumps(res['protocol'])}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1344,17 +1718,26 @@ def main() -> int:
         log(f"cli {engine}: {json.dumps(record['cli'][engine])}")
     # 5. full-width qwen2-0.5b at 1,024 tokens
     record["denselm"] = run_denselm(device, cuda_ms)
-    # the kernels line: launches summed over every fit() run, ViT's and
-    # DenseLM's
-    fits = [*record["fit"].values(), *record["denselm"]["fit"].values()]
-    launches = {k: sum(r["launches"][k] for r in fits)
-                for k in kernel_wrappers()}
+    torch.cuda.empty_cache()
+    # 6. the training lifecycle on full-width ViT-Base
+    record["lifecycle"] = life = run_lifecycle(device, cuda_ms, view)
+    log(f"lifecycle phase: {life['seconds']:.1f} s")
+    # the kernels line: launches summed over every fit() run, ViT's,
+    # DenseLM's and the lifecycle's (the chaos runs' own processes aside)
+    counted = [r["launches"] for r in (*record["fit"].values(),
+                                       *record["denselm"]["fit"].values(),
+                                       *life["fits"].values())]
+    counted += [life["checkpoint"]["launches"],
+                life["protocol"]["launches"]]
+    launches = {k: sum(c[k] for c in counted) for k in kernel_wrappers()}
+    _, no_time = life["noise_only"]
     kernels = [
         {"name": "noisy_sgd_update", "route": "cuda",
          "source": "src/repro_torch/csrc/noisy_update.cu",
          "replaces": "src/repro/kernels/noisy_update.py:166",
          "launches": launches["noisy_sgd_update"], "max_abs_err": nu_err,
-         **nu_time},
+         **nu_time,
+         "noise_only": {"launches": launches["noise_only"], **no_time}},
         {"name": "clip_accum_inplace", "route": "cuda",
          "source": "src/repro_torch/csrc/clip_accum.cu",
          "replaces": "src/repro/kernels/clip_accum.py:125",

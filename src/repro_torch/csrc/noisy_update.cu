@@ -20,6 +20,10 @@
 // bits: the operand and noise-free forms equal the plain PyTorch version
 // bitwise, leaf by leaf.
 //
+// A noise-only body (noise_kernel) writes the same in-kernel normals into a
+// flat buffer for the unfused update path (AdamW, Nesterov, fuse=False), so
+// both paths draw one stream.
+//
 // One launch per step.  The wrapper builds a leaf table once per view and
 // per set of parameter tensors and keeps it on the device: per leaf its
 // param address, its offset into the flat acc / m / z buffers, its size, its
@@ -218,6 +222,82 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The noise alone, for the unfused update: z[offset + j] <- the normal the
+// update above draws for element j of the leaf (Threefry-2x32 at the leaf's
+// key, counter (j, 0), then Box-Muller), over the same leaf table and work
+// items (the param address is not read).  It replaces the flat
+// FlatGradView.noise draw of the reference's generic update path
+// (core/engine.py build_update_fn), which must be the fused path's stream.
+// Bound on the H100: the same ~74 int32 operations per element as the
+// Threefry update, against 4 B written: operations.
+__device__ __forceinline__ float leaf_normal(uint32_t k0, uint32_t k1,
+                                             uint32_t j) {
+  uint32_t b1, b2;
+  threefry2x32(k0, k1, j, 0u, &b1, &b2);
+  return bits_to_normal(b1, b2);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    noise_kernel(const LeafRow* __restrict__ table, int n_leaves,
+                 float* __restrict__ z, int vec_ok, uint32_t s0,
+                 uint32_t s1, int64_t tail_begin, int64_t tail_end) {
+  const int64_t item = blockIdx.x;
+  if (item == 0) {      // the alignment tail past the last leaf is zero
+    for (int64_t j = tail_begin + threadIdx.x; j < tail_end; j += kThreads) {
+      z[j] = 0.0f;
+    }
+  }
+  int lo = 0, hi = n_leaves - 1;     // the last row with item0 <= item
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table[mid].item0 <= item) lo = mid; else hi = mid - 1;
+  }
+  const LeafRow row = table[lo];
+  const uint32_t k0 = s0 + static_cast<uint32_t>(row.leaf);
+  const uint32_t k1 = s1 + static_cast<uint32_t>(row.leaf);
+  float* zz = z + row.offset;
+  const int64_t n = row.size;
+  const int64_t c = item - row.item0;
+
+  if (row.head < 0) {   // out of phase: the leaf goes element by element
+    const int64_t end = (c + 1) * kChunk < n ? (c + 1) * kChunk : n;
+    for (int64_t j = c * kChunk + threadIdx.x; j < end; j += kThreads) {
+      zz[j] = leaf_normal(k0, k1, static_cast<uint32_t>(j));
+    }
+    return;
+  }
+  const int64_t h = row.head;
+  const int64_t vend = h + ((n - h) & ~int64_t{3});
+  const int64_t v0 = h + c * kChunk;
+  if (!vec_ok) {
+    const int64_t end = v0 + kChunk < vend ? v0 + kChunk : vend;
+    for (int64_t j = v0 + threadIdx.x; j < end; j += kThreads) {
+      zz[j] = leaf_normal(k0, k1, static_cast<uint32_t>(j));
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int64_t j = v0 + 4 * (threadIdx.x + u * kThreads);
+      if (j < vend) {
+        const uint32_t jj = static_cast<uint32_t>(j);
+        float4 o;
+        o.x = leaf_normal(k0, k1, jj);
+        o.y = leaf_normal(k0, k1, jj + 1u);
+        o.z = leaf_normal(k0, k1, jj + 2u);
+        o.w = leaf_normal(k0, k1, jj + 3u);
+        *reinterpret_cast<float4*>(zz + j) = o;
+      }
+    }
+  }
+  if (c == 0 && threadIdx.x < h) {
+    zz[threadIdx.x] = leaf_normal(k0, k1, threadIdx.x);
+  }
+  if (v0 + kChunk >= vend && threadIdx.x < n - vend) {
+    const int64_t j = vend + threadIdx.x;
+    zz[j] = leaf_normal(k0, k1, static_cast<uint32_t>(j));
+  }
+}
+
 __global__ void threefry_bits_kernel(uint32_t k0, uint32_t k1, int64_t n,
                                      uint32_t* __restrict__ o0,
                                      uint32_t* __restrict__ o1) {
@@ -303,6 +383,24 @@ extern "C" int noisy_sgd_update_launch(float* p, const float* acc,
                        0, n, 0, head, 0};
   return dispatch(items, nullptr, 1, single, acc, z, m, 1, noise_kind, k0,
                   k1, sc, inv_l, lr, mu, static_cast<cudaStream_t>(stream));
+}
+
+// The noise of one step over every leaf into the flat f32 buffer z, and
+// zeros over z[tail_begin, tail_end) (the alignment tail): the table, items
+// and seed words as for noisy_tree_update_launch; vec_ok says z is 16-byte
+// aligned.
+extern "C" int noise_tree_launch(const void* table, int n_leaves,
+                                 int64_t items, float* z, int vec_ok,
+                                 uint32_t k0, uint32_t k1,
+                                 int64_t tail_begin, int64_t tail_end,
+                                 void* stream) {
+  if (n_leaves <= 0 || items <= 0) return 0;
+  if (items > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  noise_kernel<<<static_cast<unsigned>(items), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const LeafRow*>(table), n_leaves, z, vec_ok, k0, k1,
+      tail_begin, tail_end);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int threefry_bits_launch(uint32_t k0, uint32_t k1, int64_t n,

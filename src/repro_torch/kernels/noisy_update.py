@@ -23,6 +23,10 @@ per view and per set of parameter tensors and kept on the device
 block of the launch takes one work item, :data:`CHUNK` elements of one leaf.
 The CPU keeps the plain per-leaf loop.
 
+**The noise alone.**  :func:`tree_noise` launches the kernel's noise-only
+body over the same table: the flat N(0,1) buffer the fused update would
+add, for the unfused update path (AdamW, Nesterov, ``fuse=False``).
+
 **Per-step seeds.**  The reference draws its noise key with
 ``jax.random.split``; the port cannot reproduce that and does not try.  A
 session's state key is two uint32 words; step ``k``'s two seed words are
@@ -217,6 +221,9 @@ def _library() -> ctypes.CDLL:
         lib.noisy_tree_update_launch.argtypes = [P, I, I64, P, P, P, I, I,
                                                  U32, U32, F, F, F, F, P]
         lib.noisy_tree_update_launch.restype = I
+        lib.noise_tree_launch.argtypes = [P, I, I64, P, I, U32, U32, I64,
+                                          I64, P]
+        lib.noise_tree_launch.restype = I
         lib.threefry_bits_launch.argtypes = [U32, U32, I64, P, P, P]
         lib.threefry_bits_launch.restype = I
         lib.noisy_update_chunk.restype = I64
@@ -362,3 +369,51 @@ def tree_noisy_update(params: Dict[str, torch.Tensor], grad_acc, seeds,
     _build.check(lib, rc, "tree_noisy_update")
     noisy_sgd_update.launches += 1
     return params, momentum_buf
+
+
+def tree_noise(params: Dict[str, torch.Tensor], seeds, *, view,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The step's noise alone, as a flat f32 N(0,1) buffer in ``view``'s
+    layout: leaf ``i``'s elements are what :func:`tree_noisy_update` draws
+    in the kernel for it (:func:`threefry_normal` at ``leaf_seed(seeds,
+    i)``), the alignment tail is zero.  The unfused update path adds this
+    buffer, so it and the fused kernel draw one stream.
+
+    On the card: ONE launch of the noise-only body over the device leaf
+    table of ``params`` (:func:`device_leaf_table`), which also zeroes the
+    tail, counted in ``tree_noise.launches``; it raises, never falls
+    back.  On the CPU: the
+    plain version, leaf by leaf.  ``out`` (a flat f32 buffer of
+    ``view.total``) is written and returned instead of a new one."""
+    dev = params[view.names[0]].device if view.names else torch.device("cpu")
+    if out is None:
+        out = torch.empty(view.total, dtype=torch.float32, device=dev)
+    _check_flat("out", out, view.total, dev)
+    if dev.type == "cpu":
+        out[view.n_params:].zero_()
+        for i in range(len(view.names)):
+            o, n = view.offsets[i], view.sizes[i]
+            out[o:o + n] = threefry_normal(leaf_seed(seeds, i), n, dev)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    leaves = [params[nm] for nm in view.names]
+    _build.require_hopper(dev)
+    lib = _library()
+    table, n_rows, items = device_leaf_table(
+        view, tuple(t.data_ptr() for t in leaves), dev)
+    if n_rows == 0:
+        out.zero_()
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.noise_tree_launch(
+            table.data_ptr(), n_rows, items, out.data_ptr(),
+            int(out.data_ptr() % 16 == 0), int(seeds[0]) & _M32,
+            int(seeds[1]) & _M32, view.n_params, view.total, stream)
+    _build.check(lib, rc, "tree_noise")
+    tree_noise.launches += 1
+    return out
+
+
+tree_noise.launches = 0

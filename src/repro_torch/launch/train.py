@@ -9,16 +9,21 @@ card)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --seq-len 1024 --physical 4 --n-data 64 --steps 1
 
-``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU.
+``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU;
+``--optimizer adamw`` takes the generic update; ``--ckpt DIR`` makes the
+final state durable there; ``--metrics events|sampled`` (with
+``--metrics-jsonl``, ``--profile-dir``) turns on telemetry.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from ..core import DPConfig, clipping
 from ..core.session import PrivacySession, TrainConfig
 from ..data import available_samplers
+from ..obs import add_cli_args, config_from_args, start_profile, stop_profile
 
 
 def main(argv=None) -> dict:
@@ -41,9 +46,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--target-eps", type=float, default=8.0)
     ap.add_argument("--clip-norm", type=float, default=4.63)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--describe", action="store_true",
                     help="print the session report before training")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (the final state is made "
+                         "durable there)")
+    add_cli_args(ap)
     args = ap.parse_args(argv)
     private = args.engine != "nonprivate"
     session = PrivacySession.from_config(
@@ -55,11 +65,21 @@ def main(argv=None) -> dict:
                     physical_batch=args.physical, q=args.q,
                     sampler=args.sampler,
                     target_eps=args.target_eps if private else None,
-                    lr=args.lr, smoke=args.smoke, seed=args.seed),
-        device=args.device)
+                    lr=args.lr, optimizer=args.optimizer, smoke=args.smoke,
+                    seed=args.seed),
+        device=args.device, obs=config_from_args(args))
     if args.describe:
         print(json.dumps(session.describe()))
-    out = session.fit()
+    if args.profile_dir:
+        start_profile(args.profile_dir)
+    try:
+        out = session.fit(ckpt=args.ckpt)
+    finally:
+        if args.profile_dir:
+            stop_profile()
+        if session.obs.enabled:
+            print(session.obs.snapshot(), file=sys.stderr)
+        session.obs.close()
     for rec in out["history"]:
         print(json.dumps(rec))
     print(json.dumps({"final": out["history"][-1] if out["history"] else {},

@@ -37,6 +37,71 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, object]:
     return {prefix[:-1]: tree}
 
 
+def flatten_params(params, prefix: str = "") -> Dict[str, object]:
+    """``{dotted path: leaf}`` of a parameter dict, nested (the reference's
+    tree) or already flat (the port's), in its own order: the keys a
+    checkpoint stores as ``params.<path>``."""
+    out: Dict[str, object] = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+# the optimizer's flat f32 buffers (SGD's momentum, AdamW's moments)
+OPT_BUFFERS = ("mom", "mu", "nu")
+
+
+def opt_state_tree(opt_state: dict, view: "FlatGradView",
+                   per_leaf: bool = False) -> dict:
+    """The optimizer state as a checkpoint stores it: ``count`` as an int32
+    scalar and each flat buffer either whole (``opt.mom``, as the
+    reference's fused SGD keeps it) or, with ``per_leaf``, as a tree of its
+    leaves (``opt.mu.<path>``, as the reference keeps AdamW's moments and
+    Nesterov's momentum).  The buffers' values are views, not copies."""
+    out = {"count": np.int32(opt_state["count"])}
+    for k in OPT_BUFFERS:
+        buf = opt_state.get(k)
+        if buf is not None:
+            out[k] = view.unflatten(buf) if per_leaf else buf
+    return out
+
+
+def opt_state_template(opt_state: dict, view: "FlatGradView",
+                       per_leaf: bool = False) -> dict:
+    """:func:`opt_state_tree`'s structure with zero-size numpy stand-ins of
+    each leaf's dtype and shape (the template ``unflatten_state`` reads)."""
+    def like(shape):
+        return np.broadcast_to(np.float32(0), shape)
+    out = {"count": np.int32(0)}
+    for k in OPT_BUFFERS:
+        if opt_state.get(k) is not None:
+            out[k] = ({n: like(view.shapes[i])
+                       for i, n in enumerate(view.names)} if per_leaf
+                      else like((view.total,)))
+    return out
+
+
+def load_opt_state(arrays: dict, opt_state: dict, view: "FlatGradView"
+                   ) -> dict:
+    """Copy a restored :func:`opt_state_template`-shaped tree of numpy
+    arrays into ``opt_state``'s buffers, in place; returns ``opt_state``."""
+    opt_state["count"] = int(arrays["count"])
+    for k in OPT_BUFFERS:
+        if k not in arrays:
+            continue
+        got, buf = arrays[k], opt_state[k]
+        if isinstance(got, dict):
+            for i, n in enumerate(view.names):
+                view.segment(buf, i).copy_(torch.from_numpy(
+                    np.ascontiguousarray(got[n])))
+        else:
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(got)))
+    return opt_state
+
+
 def params_from_numpy(tree, device) -> Dict[str, torch.Tensor]:
     """The reference's parameters (a nested dict of numpy arrays) as the
     port's parameters: a ``{path: f32 tensor}`` dict on ``device``."""
