@@ -74,18 +74,39 @@ Phases, in order; any failure raises and the script exits non-zero:
                harness killing subprocess runs at ``ckpt/mid_d2h``,
                ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
                each resumed bitwise from a snapshot; and the paper-protocol
-               twin's four engines at full width.
+               twin's four engines at full width;
+7. ssm      — full-width mamba2-1.3b (1,446,505,472 params) and
+               zamba2-1.2b (1,170,313,344) at 1,024 tokens, after the
+               lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
+               and zamba2's shared-block shapes (T_eff = 6,144), the
+               one-launch update and the clip kernels at each model's flat
+               length (a physical batch of 1); ``fit()`` per engine (mamba2:
+               ``masked_pe``, ``masked_ghost``, ``masked_bk``,
+               ``masked_fused_stream`` 2 steps each, ``masked_fused`` and
+               ``nonprivate`` 1; zamba2: ghost, BK and the stream 2 each,
+               ``nonprivate`` 1), ``ghost_norm_dense`` launched 0 (mamba2)
+               and 7 (zamba2) times per norm pass; the chunked SSD scan on
+               one layer's real activations against the per-token
+               recurrence and a smaller chunk; on one physical batch
+               ``masked_fused`` and the stream at tile = batch bitwise
+               against ``masked_pe``, the record engines under
+               ``MAMBA2_LIMITS`` / ``ZAMBA2_LIMITS``, and every dense
+               layer's forced direct path against its Gram path (mamba2's
+               projections launch the kernel there); one norm pass; one
+               accumulate per engine against ``nonprivate``.
 
 The line before the last lists the kernels as JSON (launches summed over
-every ``fit()``, ViT's, DenseLM's and the lifecycle's, the noise-only body
-as ``noisy_sgd_update``'s ``noise_only`` record; times at ViT-Base's
-main-path shapes, DenseLM's in the record); the last line is
+every ``fit()``, ViT's, DenseLM's, the lifecycle's and the SSM phase's,
+the noise-only body as ``noisy_sgd_update``'s ``noise_only`` record; times
+at ViT-Base's main-path shapes, the other phases' in the record); the last
+line is
 ``{"ok": true, "device": {...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -675,6 +696,8 @@ ENGINE_KERNELS = {
     "masked_ghost": ("noisy_sgd_update", "ghost_norm_dense"),
     "masked_bk": ("noisy_sgd_update", "ghost_norm_dense"),
     "masked_fused": ("noisy_sgd_update", "clip_accum"),
+    "masked_pe": ("noisy_sgd_update",),
+    "nonprivate": ("noisy_sgd_update",),
 }
 
 
@@ -709,8 +732,9 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     never.  ``direct_denses`` is the number of dense layers the Mixed-Ghost
     rule sends to the kernel in one norm pass: a record engine must launch
     ``ghost_norm_dense`` exactly that many times per physical batch (one
-    norm pass each), the other engines never.  Returns (session, record,
-    launches)."""
+    norm pass each), the other engines never.  ``nonprivate`` spends no ε
+    and its update is the kernel's noise-free form.  Returns (session,
+    record, launches)."""
     import torch
     from repro_torch.core import DPConfig, fused_sgd
     from repro_torch.core.session import PrivacySession, TrainConfig
@@ -744,7 +768,8 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     seconds = time.perf_counter() - t0
     launches = read_counts()
     # a wrapper counts where it launches its kernel: on the card only
-    needed = [k for k in ENGINE_KERNELS[engine] if k != "noisy_sgd_update"]
+    needed = [k for k in ENGINE_KERNELS[engine] if k != "noisy_sgd_update"
+              and (k != "ghost_norm_dense" or direct_denses)]
     for name in [*needed, update_kernel] if cuda else ():
         assert launches[name] > 0, f"fit() with {engine} launched {name} " \
                                    f"no time"
@@ -761,11 +786,14 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     assert len(losses) == tc.steps and all(map(math.isfinite, losses)), out
     assert all(bool(torch.isfinite(p).all())
                for p in session.state.params.values()), "non-finite params"
-    eps = epsilon_for(tc.sampler, session.describe()["q"],
-                      session.dp.noise_multiplier, tc.steps,
-                      tc.resolved_delta)
-    assert out["final_eps"] == eps, (out["final_eps"], eps)
-    assert eps <= tc.target_eps, eps
+    if session.dp.private:
+        eps = epsilon_for(tc.sampler, session.describe()["q"],
+                          session.dp.noise_multiplier, tc.steps,
+                          tc.resolved_delta)
+        assert out["final_eps"] == eps, (out["final_eps"], eps)
+        assert eps <= tc.target_eps, eps
+    else:
+        assert out["final_eps"] == 0.0, out["final_eps"]
     record = {"engine": engine, "optimizer": session.optimizer.kind,
               "nesterov": bool(session.optimizer.hyper.get("nesterov")),
               "steps": tc.steps,
@@ -963,13 +991,14 @@ def _fixed_batch(session):
                           (np.arange(B) < B - B // 4).astype(np.float32))
 
 
-def compare_record_engines(session, limits):
+def compare_record_engines(session, limits, stream_pe=False):
     """On one fixed physical batch: masked_fused (bitwise), masked_ghost,
     masked_bk and the streaming engine's "ghost" norm source against
     masked_pe, and every dense layer's ghost norm through the kernel
     (forced direct path) against the einsum (forced ghost path), held to
     ``limits`` (the model's named limits: "pe", "leaf" per engine, "norms",
-    "forced")."""
+    "forced").  With ``stream_pe`` the streaming engine with its own norms
+    at tile = batch is held bitwise too."""
     import torch
     from repro_torch.core import fused, layers
     from repro_torch.core.clipping import _eps_backward, resolve_engine
@@ -991,25 +1020,35 @@ def compare_record_engines(session, limits):
 
     summed, pe_aux = run["masked_pe"](loss_fn, params, batch, mask, 4.63)
     acc_pe = host_flat(summed)
-    scale = float(acc_pe.abs().max())
+    dev = session.device
+    # the statistics are taken on the card, after each engine's memory is
+    # released (on the host they took a minute a model at SSM width)
+    p = acc_pe.to(dev)
+    scale = float(p.abs().max())
+    pe_leaf_max = [float(p[o:o + n].abs().max())
+                   for o, n in zip(view.offsets, view.sizes)]
+    pe_l2 = float(p.norm())
+    del p
     pe_norms = pe_aux["per_example_norms"].cpu()
     res = {"max_abs_acc": scale}
 
     def against_pe(acc, norms):
         norms = norms.cpu()
-        leaf = {}
-        for nm, o, n in zip(view.names, view.offsets, view.sizes):
-            a, p = acc[o:o + n], acc_pe[o:o + n]
-            leaf[nm] = float((a - p).abs().max()) / max(
-                float(p.abs().max()), LEAF_FLOOR * scale)
+        a, p = acc.to(dev), acc_pe.to(dev)
+        d = (a - p).abs_()
+        leaf = {nm: float(d[o:o + n].max()) / max(top, LEAF_FLOOR * scale)
+                for nm, o, n, top in zip(view.names, view.offsets,
+                                         view.sizes, pe_leaf_max)}
         worst = max(leaf, key=leaf.get)
-        return {"bitwise": same_bits(acc, acc_pe),
-                "max_abs_err": float((acc - acc_pe).abs().max()),
-                "rel_to_max_acc": float((acc - acc_pe).abs().max()) / scale,
-                "rel_l2_err": float((acc - acc_pe).norm() / acc_pe.norm()),
-                "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
-                "norms_max_rel_err": float(((norms - pe_norms).abs()
-                                            / pe_norms).max())}
+        err = float(d.max())
+        out = {"bitwise": same_bits(a, p), "max_abs_err": err,
+               "rel_to_max_acc": err / scale,
+               "rel_l2_err": float(d.norm()) / pe_l2,
+               "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
+               "norms_max_rel_err": float(((norms - pe_norms).abs()
+                                           / pe_norms).max())}
+        del a, p, d
+        return out
 
     def hold(key, r):
         assert r["rel_to_max_acc"] <= limits["pe"][key], (key, r)
@@ -1030,6 +1069,18 @@ def compare_record_engines(session, limits):
         else:
             hold(e, res[e])
         del acc
+    if stream_pe:
+        # the streaming engine's own norms at tile = batch: masked_pe's
+        # grads at masked_pe's width, folded in its order
+        acc = session.state.grad_acc.zero_()
+        _, aux = resolve_engine("masked_fused_stream")(
+            loss_fn, params, batch, mask, 4.63, acc=acc, view=view,
+            tile=int(mask.shape[0]))
+        r = res["masked_fused_stream"] = against_pe(acc,
+                                                    aux["per_example_norms"])
+        log(f"masked_fused_stream (tile = batch) vs masked_pe: "
+            f"{json.dumps(r)}")
+        assert r["bitwise"], r
     # the streaming engine with the "ghost" norm source, tile = batch
     prev = fused.set_stream_norm_source("ghost")
     try:
@@ -1041,7 +1092,7 @@ def compare_record_engines(session, limits):
             tile=int(mask.shape[0]))
     finally:
         fused.set_stream_norm_source(prev)
-    r = against_pe(acc.cpu(), aux["per_example_norms"])
+    r = against_pe(acc, aux["per_example_norms"])
     r["norms_bitwise_vs_masked_ghost"] = same_bits(aux["per_example_norms"],
                                                    ghost_norms)
     res["masked_fused_stream_ghost"] = r
@@ -1618,6 +1669,262 @@ def run_lifecycle(device, timer, view):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 7: the SSM and hybrid families
+# --------------------------------------------------------------------------
+
+# full-width mamba2-1.3b and zamba2-1.2b (the reference's configs), bf16
+# activations, f32 params, random weights from the seed, at 1,024 tokens (a
+# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  The
+# physical batch is the largest of 4, 2 and 1 at which masked_fused fits:
+# 1 for both (at 2 it ran out of the card's memory on both; at 1 it peaks
+# at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on
+# zamba2; H100 80GB HBM3, 700 W)
+SSM_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
+                 smoke=False)
+SSM_MODELS = {
+    "mamba2-1.3b": dict(
+        params=1_446_505_472, physical_batch=1,
+        # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
+        # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
+        # and 2,896): the kernel runs in the forced-path check alone
+        direct_per_pass=0,
+        fits=(("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
+              ("masked_fused_stream", 2), ("masked_fused", 1),
+              ("nonprivate", 1)),
+        ghost_shapes={"mamba2_in_proj": (1024, 2048, 8512),
+                      "mamba2_out_proj": (1024, 4096, 2048)}),
+    "zamba2-1.2b": dict(
+        params=1_170_313_344, physical_batch=1,
+        # the shared block's records fold its 6 uses into T_eff = 6,144
+        # (T_eff^2 = 37.7M above every din dout): wq, wk, wv, wo (2,048 x
+        # 2,048), w1, w3 (2,048 x 8,192) and w2 (8,192 x 2,048) take the
+        # kernel, once each per norm pass; the mamba denses and the head
+        # take the Gram path
+        direct_per_pass=7,
+        fits=(("masked_ghost", 2), ("masked_bk", 2),
+              ("masked_fused_stream", 2), ("nonprivate", 1)),
+        ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
+                      "zamba2_w1_w3": (6144, 2048, 8192),
+                      "zamba2_w2": (6144, 8192, 2048)}),
+}
+# SSD on one layer's real activations (f32): the chunked scan against a
+# per-token ssd_step loop and against chunk 16, at the reference's bounds
+# (tests/test_flashattn.py: rtol 2e-4, atol 2e-5, elementwise)
+SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
+SSD_SMALL_CHUNK = 16
+# the record engines against masked_pe on one physical batch, per model,
+# set before the first run on the card from the CPU's bf16 values
+# (compare_record_engines on a physical batch of 4: reduced mamba2 and the
+# narrow hybrid (2 supers of 2, a tail of 1) at T = 128, seed 0; two-layer
+# cuts at full width, d 2,048, vocab 4,096, T = 256, seeds 0 and 1) and
+# the card-over-CPU ratios the ViT and DenseLM showed (ghost 1.5-2x of
+# max |acc| and 1.75-6x on the worst leaf; BK 1.2-3x of max |acc|, 0.6-0.7x
+# on the worst leaf):
+# * masked_ghost: mamba2 8.9e-3 to 1.1e-2 of max |acc|, zamba2 1.4e-2 to
+#   1.5e-2, so 2e-2 to 3e-2 expected: 5e-2; worst leaf (gains, D, dt_bias,
+#   shared.ln1) 1.4e-2 to 2.1e-2, so up to 1.2e-1 expected: 2e-1, still 5x
+#   below the O(1) of a zeroed or wrong leaf;
+# * masked_bk: mamba2 3.7e-4 to 3.4e-3 of max |acc|, so up to 1e-2
+#   expected: 3e-2; zamba2 3.0e-4 to 8.2e-4: DenseLM's 2e-2; worst leaf
+#   3.4e-3 to 4.5e-3 on both: 2e-2;
+# * the "ghost" stream source: 2.2e-7 to 6.9e-7, worst leaf up to 1.2e-6:
+#   the ViT's 1e-4 and 1e-3; the norms up to 8.7e-7 relative: 1e-3;
+# * the forced direct path against the Gram path: 4e-7 at T = 128 to
+#   1.5e-6 at T_eff = 512 (it grows with T; DenseLM's was 1.05e-5 at
+#   1,024): the ViT's 1e-4
+MAMBA2_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 3e-2,
+           "masked_fused_stream_ghost": 1e-4},
+    "leaf": {"masked_ghost": 2e-1, "masked_bk": 2e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
+ZAMBA2_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 2e-2,
+           "masked_fused_stream_ghost": 1e-4},
+    "leaf": {"masked_ghost": 2e-1, "masked_bk": 2e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
+
+
+def _ssd_close(a, b) -> dict:
+    """a against b elementwise: the largest |a - b| and its largest share
+    of atol + rtol |b| (at most 1 passes)."""
+    d = (a - b).abs()
+    return {"max_abs_err": float(d.max()),
+            "max_share_of_bound": float((d / (SSD_ATOL + SSD_RTOL
+                                              * b.abs())).max())}
+
+
+def check_ssd(session):
+    """ssd_chunked on the first mamba layer's real inputs (the embedding of
+    the fixed batch through the layer's norm, in_proj, conv and gates, the
+    session's weights), in f32, at the config's chunk against a per-token
+    loop of ssd_step and against SSD_SMALL_CHUNK: outputs and final
+    states."""
+    import torch
+    from repro_torch.core.tape import Tape
+    from repro_torch.models import common as cm
+    from repro_torch.models.mamba2 import _mamba_pre, ssd_chunked, ssd_step
+
+    cfg, p = session.model_cfg, session.state.params
+    batch, _ = _fixed_batch(session)
+    prefix, lead = (("blocks", 1) if cfg.family == "ssm"
+                    else ("supers.inner", 2))
+    lp = {k[len(prefix) + 1:]: v[(0,) * lead] for k, v in p.items()
+          if k.startswith(prefix + ".")}
+    with torch.no_grad():
+        x = p["emb.w"][batch["tokens"].long()].to(cfg.act_dtype)
+        h = cm.rmsnorm(Tape(), "ln", x, cm.sub_params(lp, "ln"), path="ln")
+        _, xs, Bm, Cm, dt, u = _mamba_pre(Tape(), "m", "m",
+                                          cm.sub_params(lp, "mamba"), h, cfg)
+        B, T = xs.shape[:2]
+        args = [a.float() for a in (xs.reshape(B, T, cfg.nheads_ssm,
+                                               cfg.ssm_head_dim),
+                                    dt, u, Bm, Cm)]
+        del x, h, xs, Bm, Cm, dt, u
+        y, s = ssd_chunked(*args, cfg.ssm_chunk)
+        y_small, s_small = ssd_chunked(*args, SSD_SMALL_CHUNK)
+        state = torch.zeros_like(s)
+        ys = []
+        for t in range(T):
+            yt, state = ssd_step(state, *(a[:, t] for a in args))
+            ys.append(yt)
+        y_step = torch.stack(ys, dim=1)
+    res = {"shape": list(args[0].shape), "state": list(s.shape),
+           "chunk": cfg.ssm_chunk, "max_abs_y": float(y.abs().max()),
+           "step_y": _ssd_close(y, y_step), "step_state": _ssd_close(
+               s, state),
+           f"chunk{SSD_SMALL_CHUNK}_y": _ssd_close(y, y_small),
+           f"chunk{SSD_SMALL_CHUNK}_state": _ssd_close(s, s_small)}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            assert v["max_share_of_bound"] <= 1.0, (k, res)
+    assert bool(torch.isfinite(y).all()), res
+    return res
+
+
+def run_ssm_model(arch, device, timer):
+    """One model of phase 7: the parameter count, the kernels at its
+    shapes, fit() per engine with its launches, SSD on the card, the
+    engines on one physical batch, one norm pass and the accumulate
+    times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.models import build
+    from repro_torch.utils.params import FlatGradView
+
+    spec = SSM_MODELS[arch]
+    stages, t_mark = {}, [time.perf_counter()]
+
+    def mark(stage):
+        """Seconds since the previous mark, under ``stage``."""
+        now = time.perf_counter()
+        stages[stage] = now - t_mark[0]
+        t_mark[0] = now
+
+    limits = MAMBA2_LIMITS if arch.startswith("mamba2") else ZAMBA2_LIMITS
+    cfg = get_config(arch)
+    model = build(cfg, device=device)
+    view = FlatGradView.for_params(model.params())
+    del model
+    torch.cuda.empty_cache()
+    assert view.n_params == spec["params"], (arch, view.n_params)
+    B = spec["physical_batch"]
+    train = dict(SSM_TRAIN, physical_batch=B)
+    res = {"arch": arch, "n_params": view.n_params, "flat": view.total,
+           "leaves": len(view.names), "seq_len": SSM_TRAIN["seq_len"],
+           "physical_batch": B}
+    log(f"{arch}: {view.n_params} params in {len(view.names)} leaves, "
+        f"flat {view.total}, physical batch {B}")
+    mark("build")
+    checks = {}
+    # the direct-path (T, din, dout) at the physical batch
+    gn_checks, gn_err = check_ghost_norm(
+        device, timer, {k: (B,) + v for k, v in spec["ghost_shapes"].items()})
+    checks["ghost_norm_dense"] = {"checks": gn_checks, "max_abs_err": gn_err}
+    log(f"{arch} ghost_norm_dense: {json.dumps(gn_checks)}")
+    mark("ghost_norm_dense")
+    torch.cuda.empty_cache()
+    tree, tree_err = check_tree_noisy_update(view, device, (0x1234, 0xBEEF))
+    checks["noisy_sgd_update"] = {"checks": {"tree": tree},
+                                  "max_abs_err": tree_err}
+    torch.cuda.empty_cache()
+    nu_time, nu_checks = time_tree_update(view, device, timer)
+    checks["noisy_sgd_update"]["checks"].update(nu_checks)
+    checks["noisy_sgd_update"].update(nu_time)
+    torch.cuda.empty_cache()
+    ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer)
+    checks["clip_accum_inplace"] = {"checks": ca_checks,
+                                    "max_abs_err": ca_err, **ca_time}
+    torch.cuda.empty_cache()
+    cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device, B,
+                                                           timer)
+    checks["clip_accum"] = {"checks": cr_checks, "max_abs_err": cr_err,
+                            **cr_time}
+    torch.cuda.empty_cache()
+    log(f"{arch} update and clip_accum: " + json.dumps(
+        {k: v for k, v in checks.items() if k != "ghost_norm_dense"}))
+    res["kernel_checks"] = checks
+    mark("update_and_clip_accum")
+    res["direct_denses_per_norm_pass"] = spec["direct_per_pass"]
+    res["fit"] = {}
+    session = None
+    for engine, steps in spec["fits"]:
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+        session, rec, _ = run_fit(arch, device, dict(train, steps=steps),
+                                  engine,
+                                  direct_denses=spec["direct_per_pass"])
+        res["fit"][engine] = rec
+        log(f"{arch} fit {engine}: {json.dumps(rec)}")
+    mark("fits")
+    # the checks and the accumulate times on a session without momentum
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    session = PrivacySession.from_config(
+        arch, DPConfig(engine="masked_pe", clip_norm=4.63),
+        TrainConfig(**dict(train, steps=1, momentum=0.0)), device=device)
+    res["ssd"] = check_ssd(session)
+    log(f"{arch} ssd: {json.dumps(res['ssd'])}")
+    mark("ssd")
+    torch.cuda.empty_cache()
+    res["record_engines"] = compare_record_engines(
+        session, limits, stream_pe=True)
+    mark("record_engines")
+    torch.cuda.empty_cache()
+    res["norm_pass"] = norm_pass_cost(session)
+    log(f"{arch} norm pass: {json.dumps(res['norm_pass'])}")
+    assert res["norm_pass"]["ghost_norm_dense_calls"] == \
+        spec["direct_per_pass"], res["norm_pass"]
+    mark("norm_pass")
+    torch.cuda.empty_cache()
+    res["accumulate"] = time_accumulate(session)
+    log(f"{arch} accumulate of one physical batch of {B} x "
+        f"{SSM_TRAIN['seq_len']} tokens, ms and ratio to nonprivate: "
+        f"{json.dumps(res['accumulate'])}")
+    mark("accumulate")
+    res["stage_seconds"] = stages
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_ssm(device, timer):
+    """Phase 7 (see the module docstring).  At one example a physical
+    batch mamba2's per-example engines reach 79 GB reserved: every session
+    is collected (``gc.collect``) before the next is built."""
+    t0 = time.perf_counter()
+    res = {arch: run_ssm_model(arch, device, timer) for arch in SSM_MODELS}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1722,13 +2029,20 @@ def main() -> int:
     # 6. the training lifecycle on full-width ViT-Base
     record["lifecycle"] = life = run_lifecycle(device, cuda_ms, view)
     log(f"lifecycle phase: {life['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    # 7. full-width mamba2-1.3b and zamba2-1.2b at 1,024 tokens
+    record["ssm"] = ssm = run_ssm(device, cuda_ms)
+    log(f"ssm phase: {ssm['seconds']:.1f} s")
     # the kernels line: launches summed over every fit() run, ViT's,
-    # DenseLM's and the lifecycle's (the chaos runs' own processes aside)
+    # DenseLM's, the lifecycle's and the SSM phase's (the chaos runs' own
+    # processes aside)
     counted = [r["launches"] for r in (*record["fit"].values(),
                                        *record["denselm"]["fit"].values(),
                                        *life["fits"].values())]
     counted += [life["checkpoint"]["launches"],
                 life["protocol"]["launches"]]
+    counted += [r["launches"] for arch in SSM_MODELS
+                for r in ssm[arch]["fit"].values()]
     launches = {k: sum(c[k] for c in counted) for k in kernel_wrappers()}
     _, no_time = life["noise_only"]
     kernels = [

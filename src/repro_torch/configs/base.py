@@ -1,9 +1,9 @@
 """ArchConfig: the architecture description the port shares with the
 reference package, as a plain dataclass (no JAX).
 
-The port builds the ViT and the dense decoder LM; the fields of the other
-families are kept so a config reads the same on both sides and
-``reduced()`` gives the same smoke variant.
+The port builds the ViT, the dense decoder LM, Mamba2 and the Zamba2
+hybrid; the fields of the other families are kept so a config reads the
+same on both sides and ``reduced()`` gives the same smoke variant.
 """
 from __future__ import annotations
 
@@ -73,6 +73,14 @@ class ArchConfig:
     @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def d_inner(self) -> int:           # ssm
+        return self.ssm_expand * self.d_model
+
+    @property
+    def nheads_ssm(self) -> int:
+        return self.ssm_heads or (self.d_inner // self.ssm_head_dim)
 
     def reduced(self, **over) -> "ArchConfig":
         """Smoke-test variant: same family/feature set, tiny dims (the

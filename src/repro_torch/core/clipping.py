@@ -141,15 +141,25 @@ def _eps_backward(loss_fn: Callable, params, batch):
     insertion order) and the per-example losses."""
     tape = Tape(Tape.RECORD)
     losses = loss_fn({k: v.detach() for k, v in params.items()}, batch, tape)
-    leaves = [leaf for e in tape.eps.values()
-              for leaf in (e if isinstance(e, list) else [e])]
+    leaves = [leaf for e in tape.eps.values() for leaf in _flat(e)]
     grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True)
     grads = iter(torch.zeros_like(leaf) if g is None else g
                  for leaf, g in zip(leaves, grads))
-    # a layer stack's dY stay a list of the per-layer tensors, as its records
-    dEps = {n: [next(grads) for _ in e] if isinstance(e, list)
-            else next(grads) for n, e in tape.eps.items()}
+    # a layer stack's dY stay (nested) lists of the per-layer tensors, as
+    # its records
+    dEps = {n: _like(e, grads) for n, e in tape.eps.items()}
     return dEps, tape.records, tape.specs, losses.detach()
+
+
+def _flat(e):
+    """The tensors of a (nested) list of eps leaves, in order."""
+    return [x for v in e for x in _flat(v)] if isinstance(e, list) else [e]
+
+
+def _like(e, values):
+    """``e``'s list nesting filled from the iterator ``values``."""
+    return [_like(v, values) for v in e] if isinstance(e, list) \
+        else next(values)
 
 
 def _sq_norms(dEps, records, specs, batch_size: int, device):

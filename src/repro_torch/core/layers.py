@@ -103,22 +103,49 @@ def conv1d_depthwise(tape: Tape, name: str, x, w, *, param_path: str):
 # ---------------------------------------------------------------------------
 
 def _fold(spec: LayerSpec, rec: Dict, dY):
-    """Normalise (record, dY) for the companions.  A 'uses' axis (one
-    parameter re-used each step) is stacked and moved after the batch axis,
-    where the companions treat it as an extra token axis (exact cross-use
-    inner products).  A 'layers' axis stays as it is, a list of per-layer
-    tensors (or a leading tensor axis): norms add over it and grads stack on
-    it.  Stacks do not nest.  Returns (rec, dY, number of layer axes)."""
-    if len(spec.stack) > 1:
-        raise ValueError(f"nested stack {spec.stack}: stacks do not nest")
-    if spec.stack != ("uses",):
-        return rec, dY, len(spec.stack)
+    """Normalise (record, dY) for the companions, as the reference's
+    ``_fold`` does.  On entry each leading stack axis is a list level (or a
+    tensor axis), outermost first.  A 'uses' axis (one parameter re-used
+    each step) is stacked and moved after the batch axis, where the
+    companions treat it as an extra token axis (exact cross-use inner
+    products).  'layers' axes stay as they are, nested lists of per-layer
+    tensors (or leading tensor axes): norms add over them and grads stack
+    on them.  Returns (rec, dY, number of layer axes)."""
+    stack = spec.stack
+    use_ax = [i for i, s in enumerate(stack) if s == "uses"]
+    if not use_ax:
+        return rec, dY, len(stack)
+    layer_ax = [i for i, s in enumerate(stack) if s == "layers"]
+    n = len(stack)
 
     def fix(a):
-        a = torch.stack(a) if isinstance(a, (list, tuple)) else a
-        return a.movedim(0, 1)
+        a = _stacked(a)
+        return a.permute(layer_ax + [n] + use_ax
+                         + list(range(n + 1, a.dim())))
 
-    return {k: fix(v) for k, v in rec.items()}, fix(dY), 0
+    return {k: fix(v) for k, v in rec.items()}, fix(dY), len(layer_ax)
+
+
+def _stacked(a):
+    """Nested lists of tensors as one tensor, a leading axis per level."""
+    if isinstance(a, (list, tuple)):
+        return torch.stack([_stacked(v) for v in a])
+    return a
+
+
+def _layers(a, n_layer_axes: int):
+    """The per-layer entries of ``n_layer_axes`` leading layer axes (list
+    levels or tensor axes), outermost first, as one flat list."""
+    if n_layer_axes == 0:
+        return [a]
+    return [x for sub in a for x in _layers(sub, n_layer_axes - 1)]
+
+
+def _lead_shape(a, n_layer_axes: int):
+    """The extents of ``n_layer_axes`` leading layer axes."""
+    if n_layer_axes == 0:
+        return ()
+    return (len(a),) + _lead_shape(a[0], n_layer_axes - 1)
 
 
 def _as_btd(a):
@@ -129,11 +156,13 @@ def _as_btd(a):
 
 
 def _map_layers(fn, args, n_layer_axes: int):
-    """Apply ``fn`` to each layer of the layer axis in turn (one layer's
-    temporaries live at a time) and sum the (B,) results over it."""
+    """Apply ``fn`` to each layer of the layer axes in turn (one layer's
+    temporaries live at a time) and sum the (B,) results over all of
+    them."""
     if n_layer_axes == 0:
         return fn(*args)
-    return torch.stack([fn(*a) for a in zip(*args)]).sum(dim=0)
+    per = zip(*(_layers(a, n_layer_axes) for a in args))
+    return torch.stack([fn(*a) for a in per]).sum(dim=0)
 
 
 def _sum_except(a, keep_trailing: int, start: int = 1):
@@ -240,15 +269,19 @@ def _coef_mul(a, coef):
 def bk_grads(spec: LayerSpec, rec: Dict, dY, coef) -> Dict[str, torch.Tensor]:
     """sum_b coef_b * per-example-grad_b, without per-example parameter
     gradients.  Keys are ``<param_path>`` (dense: ``.w`` and ``.b``); on a
-    layer stack each grad gains the leading layer axis.  The sums over
-    examples are products and reductions, not the strict fold of
-    ``masked_pe``, so the result agrees with it to f32 rounding."""
+    layer stack each grad gains the leading layer axes ((6, 6, ...) for
+    two nested stacks of 6).  The sums over examples are products and
+    reductions, not the strict fold of ``masked_pe``, so the result agrees
+    with it to f32 rounding."""
     rec, dY, nl = _fold(spec, rec, dY)
     if nl == 0:
         return _bk_grads_one(spec, rec, dY, coef)
     per = [_bk_grads_one(spec, dict(zip(rec, r)), d, coef)
-           for *r, d in zip(*rec.values(), dY)]
-    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+           for *r, d in zip(*(_layers(v, nl) for v in rec.values()),
+                            _layers(dY, nl))]
+    lead = _lead_shape(dY, nl)
+    return {k: torch.stack([p[k] for p in per]).reshape(
+        lead + per[0][k].shape) for k in per[0]}
 
 
 def _bk_grads_one(spec: LayerSpec, rec: Dict, dY, coef):

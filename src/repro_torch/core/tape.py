@@ -29,6 +29,10 @@ Python list of the per-layer tensors, for records and dY alike: nothing is
 copied into a stacked tensor, and records that hold one tensor (a block's
 ``h`` feeds wq, wk and wv) keep sharing it.  Only a ``'uses'`` axis is
 stacked, by the companions, where it must be permuted.
+
+Stacks nest: a :func:`scan_blocks` inside another's body (Zamba2's six
+mamba layers inside each of its supers) gives its records one list level
+per stack, outermost first, and a spec such as ``('layers', 'layers')``.
 """
 from __future__ import annotations
 
@@ -90,7 +94,8 @@ class Tape:
     def absorb(self, scope: str, subs: List["Tape"]) -> None:
         """Merge the per-layer tapes of a layer stack under ``scope``: specs
         gain a leading stack axis, and records and eps leaves become lists
-        over it, one entry per layer.  Stacks do not nest."""
+        over it, one entry per layer.  An entry that is itself a list (a
+        stack inside the layer) stays one, one list level per stack."""
         first = subs[0]
         for n, spec in first.specs.items():
             full = f"{scope}/{n}"

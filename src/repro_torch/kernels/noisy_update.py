@@ -86,12 +86,22 @@ def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return r * torch.cos(_TWO_PI * u2)
 
 
+# counters per piece of the plain noise: its int64 temporaries stay near
+# 1 GB however large the leaf (mamba2-1.3b's in_proj holds 837M entries)
+NORMAL_PIECE = 1 << 24
+
+
 def threefry_normal(seed: Tuple[int, int], n: int, device) -> torch.Tensor:
     """The plain version of the kernel's noise: N(0,1) for counters
-    ``(0..n-1, 0)`` under ``seed``."""
-    c0 = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(seed[0], seed[1], c0, torch.zeros_like(c0))
-    return bits_to_normal(b1, b2)
+    ``(0..n-1, 0)`` under ``seed``, drawn NORMAL_PIECE counters at a time
+    (elementwise, so the pieces give the same values as one draw)."""
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, NORMAL_PIECE):
+        c0 = torch.arange(start, min(start + NORMAL_PIECE, n),
+                          dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32(seed[0], seed[1], c0, torch.zeros_like(c0))
+        out[start:start + c0.numel()] = bits_to_normal(b1, b2)
+    return out
 
 
 def step_seeds(key: Tuple[int, int], step: int) -> Tuple[int, int]:

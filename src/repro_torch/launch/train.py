@@ -1,13 +1,17 @@
 """End-to-end DP-SGD training driver of the port: a thin CLI over
 :class:`repro_torch.core.session.PrivacySession`.
 
-Usage (full-width ViT-Base, then qwen2-0.5b at 1,024 tokens, on the
-card)::
+Usage (full-width ViT-Base, then qwen2-0.5b and mamba2-1.3b at 1,024
+tokens, on the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-base \\
         --engine masked_fused_stream --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --seq-len 1024 --physical 4 --n-data 64 --steps 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+        --seq-len 1024 --physical 2 --n-data 64 --steps 1
+
+(``--arch zamba2-1.2b`` likewise.)
 
 ``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU;
 ``--optimizer adamw`` takes the generic update; ``--ckpt DIR`` makes the

@@ -1,13 +1,16 @@
 """Architecture registry: name -> ArchConfig, family -> model class.
 
-The port builds the ``vit`` and ``dense`` families; every other family of
-the reference's registry raises until ROADMAP queue 1, item 5 ports it.
+The port builds the ``vit``, ``dense``, ``ssm`` (Mamba2) and ``hybrid``
+(Zamba2) families; every other family of the reference's registry (``moe``,
+``vlm``, ``audio``) raises until ROADMAP queue 1, item 5 ports it.
 """
 from __future__ import annotations
 
 from ..configs import ArchConfig, get_config
+from .mamba2 import Mamba2LM
 from .transformer import DenseLM
 from .vit import ViT
+from .zamba2 import Zamba2LM
 
 __all__ = ["ARCH_IDS", "build", "get_config"]
 
@@ -18,7 +21,8 @@ ARCH_IDS = [
     "mamba2-1.3b", "whisper-base", "llama3.2-3b", "vit-base",
 ]
 
-_FAMILIES = {"vit": ViT, "dense": DenseLM}
+_FAMILIES = {"vit": ViT, "dense": DenseLM, "ssm": Mamba2LM,
+             "hybrid": Zamba2LM}
 
 
 def build(cfg: ArchConfig, *, device, seed: int = 0):
