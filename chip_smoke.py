@@ -90,10 +90,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                recurrence and a smaller chunk; on one physical batch
                ``masked_fused`` and the stream at tile = batch bitwise
                against ``masked_pe``, the record engines under
-               ``MAMBA2_LIMITS`` / ``ZAMBA2_LIMITS``, and every dense
+               ``MAMBA2_LIMITS`` / ``DENSELM_LIMITS``, and every dense
                layer's forced direct path against its Gram path (mamba2's
                projections launch the kernel there); one norm pass; one
-               accumulate per engine against ``nonprivate``.
+               accumulate per engine against ``nonprivate``, after one with
+               every example masked out that must add exactly 0.
 
 The line before the last lists the kernels as JSON (launches summed over
 every ``fit()``, ViT's, DenseLM's, the lifecycle's and the SSM phase's,
@@ -749,6 +750,10 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
                            else ("noise_only", "noisy_sgd_update"))
     cuda = device.type == "cuda"
     if cuda:
+        # what the session and anything left by earlier work hold
+        allocated_before = torch.cuda.memory_allocated(device)
+        log(f"{arch} fit {engine}: {allocated_before / 1e9:.2f} GB "
+            f"allocated before it")
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
         retries = alloc_retries(device)
@@ -805,7 +810,8 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
               "engine_traits": session.describe()["engine_traits"],
               "physical_batches": len(passes),
               "launches": launches,
-              **(memory_record(device, retries) if cuda
+              **({"allocated_before_bytes": allocated_before,
+                  **memory_record(device, retries)} if cuda
                  else {"peak_mem_bytes": None})}
     return session, record, launches
 
@@ -1135,7 +1141,10 @@ def time_accumulate(session, iters=3):
     around synchronised calls, after one warm-up call), and its peak
     memory; the ratio to nonprivate is the paper's DP overhead.  The
     accumulates add into the session's own accumulator (zeroed per engine):
-    at DenseLM's width the card has no room for a second one."""
+    at DenseLM's width the card has no room for a second one.  The warm-up
+    call masks every example out and must leave the accumulator exactly 0:
+    a masked-out example's gradient, and its norm, reach no sum (at the
+    SSM models' batch of 1 the fixed batch masks none)."""
     import torch
     from repro_torch.core.engine import DPConfig, build_accumulate_fn
 
@@ -1149,7 +1158,9 @@ def time_accumulate(session, iters=3):
             engine=e, clip_norm=4.63,
             stream_tile=B if e == "masked_fused_stream" else None))
         state.grad_acc.zero_()
-        acc_fn(state, batch, mask)
+        acc_fn(state, batch, torch.zeros_like(mask))
+        nonzero = int(torch.count_nonzero(state.grad_acc))
+        assert nonzero == 0, (e, "masked-out examples added", nonzero)
         cuda = dev.type == "cuda"
         if cuda:
             torch.cuda.synchronize(dev)
@@ -1163,7 +1174,7 @@ def time_accumulate(session, iters=3):
                 torch.cuda.synchronize(dev)
             times.append(1e3 * (time.perf_counter() - t0))
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
-                  "all_ms": times,
+                  "all_ms": times, "masked_out_acc_nonzero": nonzero,
                   **(memory_record(dev, retries) if cuda
                      else {"peak_mem_bytes": None})}
         del acc_fn
@@ -1682,37 +1693,6 @@ def run_lifecycle(device, timer, view):
 # zamba2; H100 80GB HBM3, 700 W)
 SSM_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
                  smoke=False)
-SSM_MODELS = {
-    "mamba2-1.3b": dict(
-        params=1_446_505_472, physical_batch=1,
-        # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
-        # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
-        # and 2,896): the kernel runs in the forced-path check alone
-        direct_per_pass=0,
-        fits=(("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
-              ("masked_fused_stream", 2), ("masked_fused", 1),
-              ("nonprivate", 1)),
-        ghost_shapes={"mamba2_in_proj": (1024, 2048, 8512),
-                      "mamba2_out_proj": (1024, 4096, 2048)}),
-    "zamba2-1.2b": dict(
-        params=1_170_313_344, physical_batch=1,
-        # the shared block's records fold its 6 uses into T_eff = 6,144
-        # (T_eff^2 = 37.7M above every din dout): wq, wk, wv, wo (2,048 x
-        # 2,048), w1, w3 (2,048 x 8,192) and w2 (8,192 x 2,048) take the
-        # kernel, once each per norm pass; the mamba denses and the head
-        # take the Gram path
-        direct_per_pass=7,
-        fits=(("masked_ghost", 2), ("masked_bk", 2),
-              ("masked_fused_stream", 2), ("nonprivate", 1)),
-        ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
-                      "zamba2_w1_w3": (6144, 2048, 8192),
-                      "zamba2_w2": (6144, 8192, 2048)}),
-}
-# SSD on one layer's real activations (f32): the chunked scan against a
-# per-token ssd_step loop and against chunk 16, at the reference's bounds
-# (tests/test_flashattn.py: rtol 2e-4, atol 2e-5, elementwise)
-SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
-SSD_SMALL_CHUNK = 16
 # the record engines against masked_pe on one physical batch, per model,
 # set before the first run on the card from the CPU's bf16 values
 # (compare_record_engines on a physical batch of 4: reduced mamba2 and the
@@ -1733,18 +1713,45 @@ SSD_SMALL_CHUNK = 16
 # * the forced direct path against the Gram path: 4e-7 at T = 128 to
 #   1.5e-6 at T_eff = 512 (it grows with T; DenseLM's was 1.05e-5 at
 #   1,024): the ViT's 1e-4
+# zamba2's values all fall inside DENSELM_LIMITS, which it is held to;
+# mamba2's BK needs 3e-2 of max |acc|
 MAMBA2_LIMITS = {
     "pe": {"masked_ghost": 5e-2, "masked_bk": 3e-2,
            "masked_fused_stream_ghost": 1e-4},
     "leaf": {"masked_ghost": 2e-1, "masked_bk": 2e-2,
              "masked_fused_stream_ghost": 1e-3},
     "norms": 1e-3, "forced": 1e-4}
-ZAMBA2_LIMITS = {
-    "pe": {"masked_ghost": 5e-2, "masked_bk": 2e-2,
-           "masked_fused_stream_ghost": 1e-4},
-    "leaf": {"masked_ghost": 2e-1, "masked_bk": 2e-2,
-             "masked_fused_stream_ghost": 1e-3},
-    "norms": 1e-3, "forced": 1e-4}
+SSM_MODELS = {
+    "mamba2-1.3b": dict(
+        params=1_446_505_472, physical_batch=1, limits=MAMBA2_LIMITS,
+        # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
+        # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
+        # and 2,896): the kernel runs in the forced-path check alone
+        direct_per_pass=0,
+        fits=(("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
+              ("masked_fused_stream", 2), ("masked_fused", 1),
+              ("nonprivate", 1)),
+        ghost_shapes={"mamba2_in_proj": (1024, 2048, 8512),
+                      "mamba2_out_proj": (1024, 4096, 2048)}),
+    "zamba2-1.2b": dict(
+        params=1_170_313_344, physical_batch=1, limits=DENSELM_LIMITS,
+        # the shared block's records fold its 6 uses into T_eff = 6,144
+        # (T_eff^2 = 37.7M above every din dout): wq, wk, wv, wo (2,048 x
+        # 2,048), w1, w3 (2,048 x 8,192) and w2 (8,192 x 2,048) take the
+        # kernel, once each per norm pass; the mamba denses and the head
+        # take the Gram path
+        direct_per_pass=7,
+        fits=(("masked_ghost", 2), ("masked_bk", 2),
+              ("masked_fused_stream", 2), ("nonprivate", 1)),
+        ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
+                      "zamba2_w1_w3": (6144, 2048, 8192),
+                      "zamba2_w2": (6144, 8192, 2048)}),
+}
+# SSD on one layer's real activations (f32): the chunked scan against a
+# per-token ssd_step loop and against chunk 16, at the reference's bounds
+# (tests/test_flashattn.py: rtol 2e-4, atol 2e-5, elementwise)
+SSD_RTOL, SSD_ATOL = 2e-4, 2e-5
+SSD_SMALL_CHUNK = 16
 
 
 def _ssd_close(a, b) -> dict:
@@ -1761,7 +1768,9 @@ def check_ssd(session):
     the fixed batch through the layer's norm, in_proj, conv and gates, the
     session's weights), in f32, at the config's chunk against a per-token
     loop of ssd_step and against SSD_SMALL_CHUNK: outputs and final
-    states."""
+    states.  On zamba2 the layer is the first super's first inner mamba
+    layer, fed the embedding directly: the shared block that runs before it
+    in the model is skipped."""
     import torch
     from repro_torch.core.tape import Tape
     from repro_torch.models import common as cm
@@ -1825,7 +1834,6 @@ def run_ssm_model(arch, device, timer):
         stages[stage] = now - t_mark[0]
         t_mark[0] = now
 
-    limits = MAMBA2_LIMITS if arch.startswith("mamba2") else ZAMBA2_LIMITS
     cfg = get_config(arch)
     model = build(cfg, device=device)
     view = FlatGradView.for_params(model.params())
@@ -1894,7 +1902,7 @@ def run_ssm_model(arch, device, timer):
     mark("ssd")
     torch.cuda.empty_cache()
     res["record_engines"] = compare_record_engines(
-        session, limits, stream_pe=True)
+        session, spec["limits"], stream_pe=True)
     mark("record_engines")
     torch.cuda.empty_cache()
     res["norm_pass"] = norm_pass_cost(session)
@@ -2023,16 +2031,28 @@ def main() -> int:
         record["cli"][engine] = run_cli(device, ["--arch", "vit-base"],
                                         engine)
         log(f"cli {engine}: {json.dumps(record['cli'][engine])}")
+    record["allocated_bytes_after_phase"] = after = {}
+
+    def phase_end(phase):
+        """What is still allocated once a phase has released its work."""
+        after[phase] = torch.cuda.memory_allocated(device)
+        log(f"after phase {phase}: {after[phase] / 1e9:.3f} GB allocated, "
+            f"{torch.cuda.memory_reserved(device) / 1e9:.3f} GB reserved")
+
+    phase_end("4")
     # 5. full-width qwen2-0.5b at 1,024 tokens
     record["denselm"] = run_denselm(device, cuda_ms)
     torch.cuda.empty_cache()
+    phase_end("5")
     # 6. the training lifecycle on full-width ViT-Base
     record["lifecycle"] = life = run_lifecycle(device, cuda_ms, view)
     log(f"lifecycle phase: {life['seconds']:.1f} s")
     torch.cuda.empty_cache()
+    phase_end("6")
     # 7. full-width mamba2-1.3b and zamba2-1.2b at 1,024 tokens
     record["ssm"] = ssm = run_ssm(device, cuda_ms)
     log(f"ssm phase: {ssm['seconds']:.1f} s")
+    phase_end("7")
     # the kernels line: launches summed over every fit() run, ViT's,
     # DenseLM's, the lifecycle's and the SSM phase's (the chaos runs' own
     # processes aside)

@@ -100,7 +100,7 @@ def _microbatched_clipped_sum(engine, loss_fn, params, batch, mask,
         sl = slice(i * n, (i + 1) * n)
         g, aux = engine(loss_fn, params, {k: v[sl] for k, v in batch.items()},
                         mask[sl], cfg.clip_norm)
-        acc.add_(view.flatten(g))
+        view.add_into(acc, g)
         del g
         norms.append(aux["per_example_norms"])
         coefs.append(aux["clip_coef"])
@@ -152,8 +152,8 @@ def build_accumulate_fn(loss_fn: Callable, cfg: DPConfig, *,
             # by the total seen count
             def sum_loss(p):
                 return (loss_fn(p, batch) * mask).sum()
-            state.grad_acc.add_(view.flatten(torch.func.grad(sum_loss)(
-                state.params)))
+            view.add_into(state.grad_acc,
+                          torch.func.grad(sum_loss)(state.params))
             metrics = {}
         state.seen = state.seen + mask.sum()
         return state, metrics

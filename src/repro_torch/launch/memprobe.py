@@ -80,7 +80,7 @@ def _autograd_accumulate(loss_fn):
         loss = (loss_fn(params, batch) * mask).sum()
         grads = torch.autograd.grad(loss, list(params.values()))
         view = FlatGradView.for_params(state.params)
-        state.grad_acc.add_(view.flatten(dict(zip(params, grads))))
+        view.add_into(state.grad_acc, dict(zip(params, grads)))
         return state, {}
     return accumulate
 

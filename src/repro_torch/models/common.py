@@ -1,4 +1,4 @@
-"""Shared model pieces of the ViT and the dense decoder LM, built on the DP
+"""Shared model pieces of the ViT and the token LMs, built on the DP
 layer primitives (:mod:`repro_torch.core.layers`) so that every
 parameterised op is ghost/BK-clippable, as in the reference package's
 ``models/common.py``.
@@ -32,6 +32,7 @@ op for op, so the rounding points match:
 
 A layer's parameters ``p`` are the port's path-keyed leaves below the
 layer's own path (``{"wq.w": ..., "wq.b": ...}`` for ``blocks.attn``).
+:class:`TokenLM` is the surface the token LMs (dense, SSM, hybrid) share.
 """
 from __future__ import annotations
 
@@ -85,6 +86,19 @@ def get_path(module: nn.Module, path: str) -> torch.Tensor:
     for k in path.split("."):
         module = getattr(module, k)
     return module
+
+
+def leaf_names(module: nn.Module) -> Tuple[str, ...]:
+    """The names of a module's leaves, taken at construction:
+    ``named_parameters`` does not list the tensors ``functional_call``
+    swaps in."""
+    return tuple(n for n, _ in module.named_parameters())
+
+
+def stacked_leaves(module: nn.Module, names) -> Dict[str, torch.Tensor]:
+    """``{name: tensor}`` of a stacked module's leaves (under
+    ``functional_call``, the ones swapped in)."""
+    return {n: get_path(module, n) for n in names}
 
 
 def path_params(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -301,3 +315,67 @@ def per_example_ce(logits: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return -ll.mean(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the token LMs' shared surface
+# ---------------------------------------------------------------------------
+
+class TokenLM(nn.Module):
+    """``emb``, a family's layers, ``lnf`` and ``head``: the parameters as
+    ``{path: tensor}``, the logits and the per-example loss.  A family
+    builds its layers in ``_build(gen, device)``, drawn between ``emb`` and
+    ``head``, and runs them in ``_layers(tape, tokens, x)`` on the
+    embedded (B, T, d) activations.  Call the model functionally
+    (:meth:`loss` uses ``torch.func.functional_call``)."""
+
+    def __init__(self, cfg, *, device, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        gen = torch.Generator(device=device).manual_seed(seed)
+        d = cfg.d_model
+        self.emb = Leaf(torch.randn(cfg.vocab, d, generator=gen,
+                                    device=device) * 0.02)
+        self._build(gen, device)
+        self.lnf = Leaf(torch.ones(d, device=device))
+        self.head = Dense((d, cfg.vocab), False, gen, device)
+
+    def _build(self, gen: torch.Generator, device) -> None:
+        raise NotImplementedError
+
+    def _layers(self, tape: Tape, tokens: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters as the port's ``{path: tensor}`` dict in
+        flatten order (detached views sharing the module's storage)."""
+        return path_params(self)
+
+    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
+        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
+        x = L.embed(tape, "emb", tokens, self.emb.w, param_path="emb.w")
+        x = self._layers(tape, tokens, x.to(self.cfg.act_dtype))
+        return rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf")
+
+    def logits(self, tokens: torch.Tensor,
+               tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B, T) token ids -> (B, T, vocab) logits."""
+        tape = Tape() if tape is None else tape
+        return L.dense(tape, "head", self.backbone(tokens, tape), self.head.w,
+                       param_path="head")
+
+    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
+                tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B,) per-example mean next-token CE (the head chunked over T
+        with ``cfg.ce_chunk``); ``tape`` defaults to a plain one."""
+        tape = Tape() if tape is None else tape
+        return lm_head_ce(tape, self.head.w, self.backbone(tokens, tape),
+                          labels, self.cfg)
+
+    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
+             tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B,) per-example losses under ``params``; ``tape`` defaults to a
+        plain one (the record-mode engines pass theirs)."""
+        return torch.func.functional_call(
+            self, params, (batch["tokens"], batch["labels"]), {"tape": tape})

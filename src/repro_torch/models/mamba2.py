@@ -12,12 +12,12 @@ leaf.
 
 Parameter names are the reference's ``param_path`` strings
 (``blocks.mamba.in_proj.w``, ``blocks.mamba.a_neg.w`` ...), with the
-stacked ``blocks.*`` layout of :mod:`.transformer`.
+stacked ``blocks.*`` layout of :mod:`.transformer`; the embedding, final
+norm, head and loss are :class:`~.common.TokenLM`'s.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -195,64 +195,14 @@ def mamba_layer_body(cfg: ArchConfig, path: str):
     return body
 
 
-def leaf_names(module: nn.Module):
-    """The names of a module's leaves, taken at construction:
-    ``named_parameters`` does not list the tensors ``functional_call``
-    swaps in."""
-    return tuple(n for n, _ in module.named_parameters())
+class Mamba2LM(cm.TokenLM):
+    def _build(self, gen, device):
+        self.blocks = MambaLayers((self.cfg.n_layers,), self.cfg, gen, device)
+        self._block_leaves = cm.leaf_names(self.blocks)
 
-
-def stacked_leaves(module: nn.Module, names) -> Dict[str, torch.Tensor]:
-    """``{name: tensor}`` of a stacked module's leaves (under
-    ``functional_call``, the ones swapped in)."""
-    return {n: cm.get_path(module, n) for n in names}
-
-
-class Mamba2LM(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, device, seed: int = 0):
-        super().__init__()
-        self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
-        d = cfg.d_model
-        self.emb = cm.Leaf(torch.randn(cfg.vocab, d, generator=gen,
-                                       device=device) * 0.02)
-        self.blocks = MambaLayers((cfg.n_layers,), cfg, gen, device)
-        self.lnf = cm.Leaf(torch.ones(d, device=device))
-        self.head = cm.Dense((d, cfg.vocab), False, gen, device)
-        self._block_leaves = leaf_names(self.blocks)
-
-    def params(self) -> Dict[str, torch.Tensor]:
-        """The model's parameters as the port's ``{path: tensor}`` dict in
-        flatten order (detached views sharing the module's storage)."""
-        return cm.path_params(self)
-
-    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
-        cfg = self.cfg
-        x = L.embed(tape, "emb", tokens, self.emb.w, param_path="emb.w")
-        x = x.to(cfg.act_dtype)
-        x = scan_blocks(tape, "blocks", mamba_layer_body(cfg, "blocks"),
-                        stacked_leaves(self.blocks, self._block_leaves), x,
-                        cfg.n_layers)
-        return cm.rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf")
-
-    def logits(self, tokens: torch.Tensor,
-               tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, vocab) logits."""
-        tape = Tape() if tape is None else tape
-        return L.dense(tape, "head", self.backbone(tokens, tape), self.head.w,
-                       param_path="head")
-
-    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
-                tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example mean next-token CE."""
-        tape = Tape() if tape is None else tape
-        x = self.backbone(tokens, tape)
-        return cm.lm_head_ce(tape, self.head.w, x, labels, self.cfg)
-
-    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
-             tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example losses under ``params``; ``tape`` defaults to a
-        plain one (the record-mode engines pass theirs)."""
-        return torch.func.functional_call(
-            self, params, (batch["tokens"], batch["labels"]), {"tape": tape})
+    def _layers(self, tape: Tape, tokens: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+        return scan_blocks(tape, "blocks", mamba_layer_body(self.cfg,
+                                                            "blocks"),
+                           cm.stacked_leaves(self.blocks, self._block_leaves),
+                           x, self.cfg.n_layers)

@@ -9,20 +9,17 @@ Parameter names are the reference's ``param_path`` strings (``emb.w``,
 blocks keep the reference's stacked layout: every ``blocks.*`` leaf has a
 leading ``n_layers`` axis, unbound once per forward and looped in Python
 (:func:`~repro_torch.core.tape.scan_blocks`, under tape scope ``blocks``).
-Call the model functionally (:meth:`DenseLM.loss` uses
-``torch.func.functional_call``).  Every parameterised op goes through a
-tape primitive, as in the reference: ``emb`` is ``embed``, each RMSNorm
-(and qk-norm) a ``scale``, every projection and the head a ``dense``.
+The embedding, final norm, head and loss are :class:`~.common.TokenLM`'s.
+Every parameterised op goes through a tape primitive, as in the reference:
+``emb`` is ``embed``, each RMSNorm (and qk-norm) a ``scale``, every
+projection and the head a ``dense``.
 """
 from __future__ import annotations
-
-from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core import layers as L
 from ..core.tape import Tape, scan_blocks
 from . import common as cm
 
@@ -62,34 +59,18 @@ class _Blocks(nn.Module):
         self.mlp = _SwiGLU(lead, d, cfg.d_ff, gen, device)
 
 
-class DenseLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, device, seed: int = 0):
-        super().__init__()
-        self.cfg = cfg
+class DenseLM(cm.TokenLM):
+    def _build(self, gen, device):
+        cfg = self.cfg
         self.acfg = cm.AttnCfg(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
             rope_theta=cfg.rope_theta, window=cfg.sliding_window)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        d = cfg.d_model
-        self.emb = cm.Leaf(torch.randn(cfg.vocab, d, generator=gen,
-                                       device=device) * 0.02)
         self.blocks = _Blocks(cfg, self.acfg, gen, device)
-        self.lnf = cm.Leaf(torch.ones(d, device=device))
-        self.head = cm.Dense((d, cfg.vocab), False, gen, device)
-        self._block_leaves = tuple(n for n, _ in
-                                   self.blocks.named_parameters())
+        self._block_leaves = cm.leaf_names(self.blocks)
 
-    def params(self) -> Dict[str, torch.Tensor]:
-        """The model's parameters as the port's ``{path: tensor}`` dict in
-        flatten order (detached views sharing the module's storage)."""
-        return cm.path_params(self)
-
-    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
-        cfg = self.cfg
-        x = L.embed(tape, "emb", tokens, self.emb.w, param_path="emb.w")
-        x = x.to(cfg.act_dtype)
+    def _layers(self, tape: Tape, tokens: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
 
@@ -104,28 +85,6 @@ class DenseLM(nn.Module):
             return x + cm.swiglu(sub, "mlp", "blocks.mlp",
                                  cm.sub_params(p, "mlp"), h)
 
-        stacked = {n: cm.get_path(self.blocks, n) for n in self._block_leaves}
-        x = scan_blocks(tape, "blocks", body, stacked, x, cfg.n_layers)
-        return cm.rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf")
-
-    def logits(self, tokens: torch.Tensor,
-               tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, vocab) logits."""
-        tape = Tape() if tape is None else tape
-        return L.dense(tape, "head", self.backbone(tokens, tape), self.head.w,
-                       param_path="head")
-
-    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
-                tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example mean next-token CE (the head chunked over T
-        with ``cfg.ce_chunk``); ``tape`` defaults to a plain one."""
-        tape = Tape() if tape is None else tape
-        x = self.backbone(tokens, tape)
-        return cm.lm_head_ce(tape, self.head.w, x, labels, self.cfg)
-
-    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
-             tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example losses under ``params``; ``tape`` defaults to a
-        plain one (the record-mode engines pass theirs)."""
-        return torch.func.functional_call(
-            self, params, (batch["tokens"], batch["labels"]), {"tape": tape})
+        return scan_blocks(tape, "blocks", body,
+                           cm.stacked_leaves(self.blocks, self._block_leaves),
+                           x, self.cfg.n_layers)

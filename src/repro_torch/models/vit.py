@@ -77,8 +77,7 @@ class ViT(nn.Module):
         self.blocks = _Blocks(cfg, gen, device)
         self.lnf = _LayerNorm((d,), device)
         self.head = cm.Dense((d, cfg.n_classes), True, gen, device)
-        self._block_leaves = tuple(n for n, _ in
-                                   self.blocks.named_parameters())
+        self._block_leaves = cm.leaf_names(self.blocks)
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The model's parameters as the port's ``{path: tensor}`` dict in
@@ -118,8 +117,9 @@ class ViT(nn.Module):
             return x + cm.gelu_mlp(sub, "mlp", "blocks.mlp",
                                    cm.sub_params(p, "mlp"), h)
 
-        stacked = {n: cm.get_path(self.blocks, n) for n in self._block_leaves}
-        x = scan_blocks(tape, "blocks", body, stacked, x, cfg.n_layers)
+        x = scan_blocks(tape, "blocks", body,
+                        cm.stacked_leaves(self.blocks, self._block_leaves), x,
+                        cfg.n_layers)
         x = cm.layernorm(tape, "lnf", x, {"g.w": self.lnf.g.w,
                                           "b.w": self.lnf.b.w}, path="lnf")
         return L.dense(tape, "head", x[:, 0], self.head.w, self.head.b,

@@ -10,20 +10,18 @@ axes (n_super, attn_every)); the ``n_layers % attn_every`` leftover mamba
 layers form the ``tailb`` stack.  The shared block's parameters are re-used
 by every super; its primitives are registered under ``shared/`` names, so
 the clipping engines fold its use axis into the token axis and the
-per-example norms are exact across uses.
+per-example norms are exact across uses.  The embedding, final norm,
+head and loss are :class:`~.common.TokenLM`'s.
 """
 from __future__ import annotations
-
-from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core import layers as L
 from ..core.tape import Tape, scan_blocks
 from . import common as cm
-from .mamba2 import MambaLayers, leaf_names, mamba_layer_body, stacked_leaves
+from .mamba2 import MambaLayers, mamba_layer_body
 from .transformer import _Attention, _SwiGLU
 
 
@@ -43,33 +41,21 @@ class _Supers(nn.Module):
         self.inner = MambaLayers((n_super, cfg.attn_every), cfg, gen, device)
 
 
-class Zamba2LM(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, device, seed: int = 0):
-        super().__init__()
-        self.cfg = cfg
+class Zamba2LM(cm.TokenLM):
+    def _build(self, gen, device):
+        cfg = self.cfg
         self.acfg = cm.AttnCfg(
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
             rope_theta=cfg.rope_theta)
         self.n_super = cfg.n_layers // cfg.attn_every
         self.tail = cfg.n_layers - self.n_super * cfg.attn_every
-        gen = torch.Generator(device=device).manual_seed(seed)
-        d = cfg.d_model
-        self.emb = cm.Leaf(torch.randn(cfg.vocab, d, generator=gen,
-                                       device=device) * 0.02)
         self.shared = _Shared(cfg, self.acfg, gen, device)
         self.supers = _Supers(self.n_super, cfg, gen, device)
-        self.lnf = cm.Leaf(torch.ones(d, device=device))
-        self.head = cm.Dense((d, cfg.vocab), False, gen, device)
         if self.tail:
             self.tailb = MambaLayers((self.tail,), cfg, gen, device)
-        self._super_leaves = leaf_names(self.supers)
-        self._shared_leaves = leaf_names(self.shared)
-        self._tail_leaves = leaf_names(self.tailb) if self.tail else ()
-
-    def params(self) -> Dict[str, torch.Tensor]:
-        """The model's parameters as the port's ``{path: tensor}`` dict in
-        flatten order (detached views sharing the module's storage)."""
-        return cm.path_params(self)
+        self._super_leaves = cm.leaf_names(self.supers)
+        self._shared_leaves = cm.leaf_names(self.shared)
+        self._tail_leaves = cm.leaf_names(self.tailb) if self.tail else ()
 
     def _shared_block(self, sub: Tape, sp: dict, x, positions):
         h = cm.rmsnorm(sub, "shared/ln1", x, cm.sub_params(sp, "ln1"),
@@ -82,14 +68,12 @@ class Zamba2LM(nn.Module):
         return x + cm.swiglu(sub, "shared/mlp", "shared.mlp",
                              cm.sub_params(sp, "mlp"), h)
 
-    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
+    def _layers(self, tape: Tape, tokens: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = L.embed(tape, "emb", tokens, self.emb.w, param_path="emb.w")
-        x = x.to(cfg.act_dtype)
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
-        sp = stacked_leaves(self.shared, self._shared_leaves)
+        sp = cm.stacked_leaves(self.shared, self._shared_leaves)
         inner = mamba_layer_body(cfg, "supers.inner")
 
         def super_body(sub, p, x):
@@ -98,31 +82,10 @@ class Zamba2LM(nn.Module):
                                x, cfg.attn_every)
 
         x = scan_blocks(tape, "supers", super_body,
-                        stacked_leaves(self.supers, self._super_leaves), x,
+                        cm.stacked_leaves(self.supers, self._super_leaves), x,
                         self.n_super)
         if self.tail:
             x = scan_blocks(tape, "tailb", mamba_layer_body(cfg, "tailb"),
-                            stacked_leaves(self.tailb, self._tail_leaves), x,
-                            self.tail)
-        return cm.rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf")
-
-    def logits(self, tokens: torch.Tensor,
-               tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, vocab) logits."""
-        tape = Tape() if tape is None else tape
-        return L.dense(tape, "head", self.backbone(tokens, tape), self.head.w,
-                       param_path="head")
-
-    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
-                tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example mean next-token CE."""
-        tape = Tape() if tape is None else tape
-        x = self.backbone(tokens, tape)
-        return cm.lm_head_ce(tape, self.head.w, x, labels, self.cfg)
-
-    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
-             tape: Optional[Tape] = None) -> torch.Tensor:
-        """(B,) per-example losses under ``params``; ``tape`` defaults to a
-        plain one (the record-mode engines pass theirs)."""
-        return torch.func.functional_call(
-            self, params, (batch["tokens"], batch["labels"]), {"tape": tape})
+                            cm.stacked_leaves(self.tailb, self._tail_leaves),
+                            x, self.tail)
+        return x

@@ -98,6 +98,22 @@ def test_flat_grad_view_matches_reference_on_reduced_vit():
     assert not flat[view.n_params:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_grad_view_add_into_is_the_flat_add(dtype):
+    """add_into adds each leaf into its offset range: bitwise the add of the
+    flattened tree, padding untouched."""
+    params = build(get_config("vit-base").reduced(), device="cpu").params()
+    view = FlatGradView.for_params(params)
+    gen = torch.Generator().manual_seed(0)
+    tree = {n: torch.randn(p.shape, generator=gen).to(dtype)
+            for n, p in params.items()}
+    acc = torch.randn(view.total, generator=gen)
+    want = acc.clone().add_(view.flatten(tree))
+    got = view.add_into(acc, tree)
+    assert got is acc and torch.equal(got.view(torch.int32),
+                                      want.view(torch.int32))
+
+
 def test_leaf_order_is_key_chain_order():
     """jax.tree.flatten sorts keys per level, not the joined strings."""
     tree = {"a-b": np.zeros(1), "a": {"b": np.zeros(2), "c": np.zeros(3)},
