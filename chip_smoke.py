@@ -94,14 +94,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                layer's forced direct path against its Gram path (mamba2's
                projections launch the kernel there); one norm pass; one
                accumulate per engine against ``nonprivate``, after one with
-               every example masked out that must add exactly 0.
+               every example masked out that must add exactly 0;
+8. moe      — full-width olmoe-1b-7b at 3 of its 16 layers
+               (1,464,744,704 params) and deepseek-v2-lite-16b at 2 of 27
+               (its dense layer and one MoE layer; 1,085,287,424) at 1,024
+               tokens, after the SSM phase: ``ghost_norm_dense`` at the
+               router's and MLA's RoPE key's shape (B, 1,024, 2,048, 64),
+               the update and the clip kernels at each model's flat length;
+               ``fit()`` with ``masked_pe``, ``masked_ghost``,
+               ``masked_bk`` and ``masked_fused_stream`` (2 steps each),
+               ``masked_fused`` and ``nonprivate`` (1), the kernel launched
+               3 times per norm pass (olmoe's routers; deepseek's router and
+               2 ``wkr``); on one physical batch the experts the batched and
+               the per-example forwards select (any difference printed),
+               ``masked_fused`` and the stream at tile = batch bitwise
+               against ``masked_pe``, the record engines under
+               ``MOE_LIMITS`` and every dense layer's forced direct path
+               against its Gram path; one norm pass; one accumulate per
+               engine against ``nonprivate``, after one with every example
+               masked out that must add exactly 0, and two of its timed
+               calls bit-identical; and BK's embedding grad run three
+               times on tokens that all repeat, bit-identical.
 
 The line before the last lists the kernels as JSON (launches summed over
-every ``fit()``, ViT's, DenseLM's, the lifecycle's and the SSM phase's,
-the noise-only body as ``noisy_sgd_update``'s ``noise_only`` record; times
-at ViT-Base's main-path shapes, the other phases' in the record); the last
-line is
-``{"ok": true, "device": {...}}``.  The full record goes to
+every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM phase's and
+the MoE phase's, the noise-only body as ``noisy_sgd_update``'s
+``noise_only`` record; times at ViT-Base's main-path shapes, the other
+phases' in the record); the last line is ``{"ok": true, "device":
+{...}}``.  The full record goes to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or run outside a
 checkout of the repository, the script exits non-zero and prints no result.
 """
@@ -726,7 +746,8 @@ def read_counts() -> dict:
 
 def run_fit(arch, device, train_kw, engine="masked_fused_stream",
             direct_denses=0, optimizer=None, fit_kw=None):
-    """fit() with ``engine`` (and ``optimizer``, else the TrainConfig's);
+    """fit() of ``arch`` (a name or an ArchConfig) with ``engine`` (and
+    ``optimizer``, else the TrainConfig's);
     every kernel counter is set to 0 just before and read just after.  The
     update launches ``noisy_sgd_update`` once per step when the optimizer
     is fused, else its noise-only body once per step and the fused form
@@ -745,6 +766,8 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     session = PrivacySession.from_config(
         arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device,
         optimizer=optimizer)
+    if not isinstance(arch, str):
+        arch = f"{arch.name} ({arch.n_layers} layers)"
     fused = fused_sgd(session.optimizer)
     update_kernel, idle = (("noisy_sgd_update", "noise_only") if fused
                            else ("noise_only", "noisy_sgd_update"))
@@ -997,6 +1020,25 @@ def _fixed_batch(session):
                           (np.arange(B) < B - B // 4).astype(np.float32))
 
 
+def routing_agreement(session, batch):
+    """The experts each MoE layer selects, and which assignments it keeps
+    at capacity, in the batched forward (the record engines' and
+    ``nonprivate``'s) against one forward per example under ``vmap`` (the
+    per-example engines'): the count of differing entries per layer."""
+    from repro_torch.models.moe import routing
+    params, loss_fn = session.state.params, session.loss_fn
+    batched = routing(loss_fn, params, batch)
+    per = routing(loss_fn, params, batch, per_example=True)
+    layers = [{"assignments": e1.numel(),
+               "dropped": int((~v1).sum()),
+               "experts_differ": int((e1 != e2).sum()),
+               "kept_differ": int((v1 != v2).sum())}
+              for (e1, v1), (e2, v2) in zip(batched, per)]
+    return {"layers": layers,
+            "agree": all(r["experts_differ"] == r["kept_differ"] == 0
+                         for r in layers)}
+
+
 def compare_record_engines(session, limits, stream_pe=False):
     """On one fixed physical batch: masked_fused (bitwise), masked_ghost,
     masked_bk and the streaming engine's "ghost" norm source against
@@ -1004,7 +1046,10 @@ def compare_record_engines(session, limits, stream_pe=False):
     (forced direct path) against the einsum (forced ghost path), held to
     ``limits`` (the model's named limits: "pe", "leaf" per engine, "norms",
     "forced").  With ``stream_pe`` the streaming engine with its own norms
-    at tile = batch is held bitwise too."""
+    at tile = batch is held bitwise too.  On an MoE model the routing of
+    the engines' two kinds of forward is compared first and any difference
+    is printed (a flipped expert is a finding, not a reason for a wider
+    limit)."""
     import torch
     from repro_torch.core import fused, layers
     from repro_torch.core.clipping import _eps_backward, resolve_engine
@@ -1015,6 +1060,11 @@ def compare_record_engines(session, limits, stream_pe=False):
     view = FlatGradView.for_params(params)
     run = {e: resolve_engine(e) for e in ("masked_pe", "masked_fused",
                                           "masked_ghost", "masked_bk")}
+    routing = {}
+    if session.model_cfg.family == "moe":
+        routing["routing"] = routing_agreement(session, batch)
+        log(f"routing, batched vs per-example forward: "
+            f"{json.dumps(routing['routing'])}")
     def host_flat(summed):
         """The summed grads flattened on the host, their device copies
         released: at DenseLM's width the engines need the card's room."""
@@ -1036,7 +1086,7 @@ def compare_record_engines(session, limits, stream_pe=False):
     pe_l2 = float(p.norm())
     del p
     pe_norms = pe_aux["per_example_norms"].cpu()
-    res = {"max_abs_acc": scale}
+    res = {"max_abs_acc": scale, **routing}
 
     def against_pe(acc, norms):
         norms = norms.cpu()
@@ -1136,15 +1186,17 @@ ACCUMULATE_ENGINES = ("nonprivate", "masked_pe", "masked_fused",
                       "masked_fused_stream", "masked_ghost", "masked_bk")
 
 
-def time_accumulate(session, iters=3):
+def time_accumulate(session, iters=3, rerun=False):
     """One accumulate of the fixed physical batch per engine (host clock
     around synchronised calls, after one warm-up call), and its peak
     memory; the ratio to nonprivate is the paper's DP overhead.  The
-    accumulates add into the session's own accumulator (zeroed per engine):
-    at DenseLM's width the card has no room for a second one.  The warm-up
-    call masks every example out and must leave the accumulator exactly 0:
-    a masked-out example's gradient, and its norm, reach no sum (at the
-    SSM models' batch of 1 the fixed batch masks none)."""
+    accumulates add into the session's own accumulator, zeroed before each
+    call: at DenseLM's width the card has no room for a second one.  The
+    warm-up call masks every example out and must leave the accumulator
+    exactly 0: a masked-out example's gradient, and its norm, reach no sum
+    (at the SSM models' batch of 1 the fixed batch masks none).  With
+    ``rerun`` the first and last timed calls' accumulators, copied to the
+    host, must be bit-identical (what a bitwise resume needs)."""
     import torch
     from repro_torch.core.engine import DPConfig, build_accumulate_fn
 
@@ -1166,17 +1218,26 @@ def time_accumulate(session, iters=3):
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             retries = alloc_retries(dev)
-        times = []
-        for _ in range(iters):
+        times, first = [], None
+        for i in range(iters):
+            state.grad_acc.zero_()
+            if cuda:
+                torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             acc_fn(state, batch, mask)
             if cuda:
                 torch.cuda.synchronize(dev)
             times.append(1e3 * (time.perf_counter() - t0))
+            if rerun and i == 0:
+                first = state.grad_acc.cpu()
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
                   "all_ms": times, "masked_out_acc_nonzero": nonzero,
                   **(memory_record(dev, retries) if cuda
                      else {"peak_mem_bytes": None})}
+        if rerun:
+            res[e]["rerun_bitwise"] = same_bits(first, state.grad_acc.cpu())
+            del first
+            assert res[e]["rerun_bitwise"], (e, "reruns differ")
         del acc_fn
         if cuda:
             torch.cuda.empty_cache()
@@ -1813,19 +1874,19 @@ def check_ssd(session):
     return res
 
 
-def run_ssm_model(arch, device, timer):
-    """One model of phase 7: the parameter count, the kernels at its
-    shapes, fit() per engine with its launches, SSD on the card, the
-    engines on one physical batch, one norm pass and the accumulate
-    times."""
+def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
+    """One model of phases 7 and 8 (``cfg`` an ArchConfig, ``spec`` its
+    entry of SSM_MODELS or MOE_MODELS): the parameter count, the kernels
+    at its shapes, fit() per engine with its launches, the model's own
+    ``checks`` (name -> function of a session), the engines on one
+    physical batch, one norm pass and the accumulate times."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import DPConfig
     from repro_torch.core.session import PrivacySession, TrainConfig
     from repro_torch.models import build
     from repro_torch.utils.params import FlatGradView
 
-    spec = SSM_MODELS[arch]
+    arch = cfg.name
     stages, t_mark = {}, [time.perf_counter()]
 
     def mark(stage):
@@ -1834,48 +1895,48 @@ def run_ssm_model(arch, device, timer):
         stages[stage] = now - t_mark[0]
         t_mark[0] = now
 
-    cfg = get_config(arch)
     model = build(cfg, device=device)
     view = FlatGradView.for_params(model.params())
     del model
     torch.cuda.empty_cache()
     assert view.n_params == spec["params"], (arch, view.n_params)
     B = spec["physical_batch"]
-    train = dict(SSM_TRAIN, physical_batch=B)
-    res = {"arch": arch, "n_params": view.n_params, "flat": view.total,
-           "leaves": len(view.names), "seq_len": SSM_TRAIN["seq_len"],
-           "physical_batch": B}
-    log(f"{arch}: {view.n_params} params in {len(view.names)} leaves, "
-        f"flat {view.total}, physical batch {B}")
+    train = dict(train_kw, physical_batch=B)
+    res = {"arch": arch, "n_layers": cfg.n_layers, "n_params": view.n_params,
+           "flat": view.total, "leaves": len(view.names),
+           "seq_len": train_kw["seq_len"], "physical_batch": B}
+    log(f"{arch} at {cfg.n_layers} layers: {view.n_params} params in "
+        f"{len(view.names)} leaves, flat {view.total}, physical batch {B}")
     mark("build")
-    checks = {}
+    kernel_checks = {}
     # the direct-path (T, din, dout) at the physical batch
     gn_checks, gn_err = check_ghost_norm(
         device, timer, {k: (B,) + v for k, v in spec["ghost_shapes"].items()})
-    checks["ghost_norm_dense"] = {"checks": gn_checks, "max_abs_err": gn_err}
+    kernel_checks["ghost_norm_dense"] = {"checks": gn_checks,
+                                         "max_abs_err": gn_err}
     log(f"{arch} ghost_norm_dense: {json.dumps(gn_checks)}")
     mark("ghost_norm_dense")
     torch.cuda.empty_cache()
     tree, tree_err = check_tree_noisy_update(view, device, (0x1234, 0xBEEF))
-    checks["noisy_sgd_update"] = {"checks": {"tree": tree},
-                                  "max_abs_err": tree_err}
+    kernel_checks["noisy_sgd_update"] = {"checks": {"tree": tree},
+                                         "max_abs_err": tree_err}
     torch.cuda.empty_cache()
     nu_time, nu_checks = time_tree_update(view, device, timer)
-    checks["noisy_sgd_update"]["checks"].update(nu_checks)
-    checks["noisy_sgd_update"].update(nu_time)
+    kernel_checks["noisy_sgd_update"]["checks"].update(nu_checks)
+    kernel_checks["noisy_sgd_update"].update(nu_time)
     torch.cuda.empty_cache()
     ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer)
-    checks["clip_accum_inplace"] = {"checks": ca_checks,
-                                    "max_abs_err": ca_err, **ca_time}
+    kernel_checks["clip_accum_inplace"] = {"checks": ca_checks,
+                                           "max_abs_err": ca_err, **ca_time}
     torch.cuda.empty_cache()
     cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device, B,
                                                            timer)
-    checks["clip_accum"] = {"checks": cr_checks, "max_abs_err": cr_err,
-                            **cr_time}
+    kernel_checks["clip_accum"] = {"checks": cr_checks, "max_abs_err": cr_err,
+                                   **cr_time}
     torch.cuda.empty_cache()
     log(f"{arch} update and clip_accum: " + json.dumps(
-        {k: v for k, v in checks.items() if k != "ghost_norm_dense"}))
-    res["kernel_checks"] = checks
+        {k: v for k, v in kernel_checks.items() if k != "ghost_norm_dense"}))
+    res["kernel_checks"] = kernel_checks
     mark("update_and_clip_accum")
     res["direct_denses_per_norm_pass"] = spec["direct_per_pass"]
     res["fit"] = {}
@@ -1884,7 +1945,7 @@ def run_ssm_model(arch, device, timer):
         del session
         gc.collect()
         torch.cuda.empty_cache()
-        session, rec, _ = run_fit(arch, device, dict(train, steps=steps),
+        session, rec, _ = run_fit(cfg, device, dict(train, steps=steps),
                                   engine,
                                   direct_denses=spec["direct_per_pass"])
         res["fit"][engine] = rec
@@ -1895,12 +1956,13 @@ def run_ssm_model(arch, device, timer):
     gc.collect()
     torch.cuda.empty_cache()
     session = PrivacySession.from_config(
-        arch, DPConfig(engine="masked_pe", clip_norm=4.63),
+        cfg, DPConfig(engine="masked_pe", clip_norm=4.63),
         TrainConfig(**dict(train, steps=1, momentum=0.0)), device=device)
-    res["ssd"] = check_ssd(session)
-    log(f"{arch} ssd: {json.dumps(res['ssd'])}")
-    mark("ssd")
-    torch.cuda.empty_cache()
+    for name, check in (checks or {}).items():
+        res[name] = check(session)
+        log(f"{arch} {name}: {json.dumps(res[name])}")
+        mark(name)
+        torch.cuda.empty_cache()
     res["record_engines"] = compare_record_engines(
         session, spec["limits"], stream_pe=True)
     mark("record_engines")
@@ -1911,9 +1973,10 @@ def run_ssm_model(arch, device, timer):
         spec["direct_per_pass"], res["norm_pass"]
     mark("norm_pass")
     torch.cuda.empty_cache()
-    res["accumulate"] = time_accumulate(session)
+    res["accumulate"] = time_accumulate(session,
+                                        rerun=cfg.family == "moe")
     log(f"{arch} accumulate of one physical batch of {B} x "
-        f"{SSM_TRAIN['seq_len']} tokens, ms and ratio to nonprivate: "
+        f"{train_kw['seq_len']} tokens, ms and ratio to nonprivate: "
         f"{json.dumps(res['accumulate'])}")
     mark("accumulate")
     res["stage_seconds"] = stages
@@ -1923,12 +1986,137 @@ def run_ssm_model(arch, device, timer):
     return res
 
 
+def run_ssm_model(arch, device, timer):
+    """One model of phase 7, with the SSD check."""
+    from repro_torch.configs import get_config
+    return run_lm_model(get_config(arch), SSM_MODELS[arch], SSM_TRAIN,
+                        device, timer, checks={"ssd": check_ssd})
+
+
 def run_ssm(device, timer):
     """Phase 7 (see the module docstring).  At one example a physical
     batch mamba2's per-example engines reach 79 GB reserved: every session
     is collected (``gc.collect``) before the next is built."""
     t0 = time.perf_counter()
     res = {arch: run_ssm_model(arch, device, timer) for arch in SSM_MODELS}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: the MoE family
+# --------------------------------------------------------------------------
+
+# full-width olmoe-1b-7b and deepseek-v2-lite-16b (the reference's configs:
+# every width, expert count, top-k, capacity factor and vocab), bf16
+# activations, f32 params, random weights from the seed, at 1,024 tokens;
+# n 64, q 0.125, eps 8, clip 4.63.  Depth is the one cut: the f32 state
+# (params, accumulator, momentum: 12 B a parameter) of olmoe's 16 layers is
+# 83 GB, so 3 of them (1,464,744,704 params, 17.6 GB), and deepseek's
+# leading dense layer and one MoE layer (2 of 27; 1,085,287,424 params, 13.0
+# GB).  The physical batch is the largest of 2 and 1 at which masked_fused
+# fits: 2 for both (at 2 its fit peaks at 41.4 GB allocated and 70.0
+# reserved on olmoe; H100 80GB HBM3, 700 W)
+MOE_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
+                 smoke=False)
+MOE_FITS = (("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
+            ("masked_fused_stream", 2), ("masked_fused", 1),
+            ("nonprivate", 1))
+# the record engines against masked_pe on one physical batch, set before
+# the first run on the card from the CPU's bf16 values (compare_record_
+# engines on reduced olmoe and deepseek, a physical batch of 4 at T = 128,
+# seed 0; and on two-layer cuts at full width, d 2,048 with MLA's and the
+# experts' widths but 16 experts top-2 and a vocab of 4,096, a physical
+# batch of 2 at T = 256, seeds 0 and 1) and the card-over-CPU ratios the
+# ViT, DenseLM and the SSM models showed (ghost 1.5-2x of max |acc| and
+# 1.75-6x on the worst leaf; BK 1.2-3x of max |acc|, 0.6-0.7x on the worst
+# leaf):
+# * masked_ghost: 9.1e-3 to 1.6e-2 of max |acc|, so up to 3.1e-2 expected:
+#   5e-2; worst leaf (qk-norm gains, ckv_norm, ln1, the embedding) 1.3e-2
+#   to 1.6e-2, so up to 9.4e-2 expected: 2e-1, still 5x below the O(1) of
+#   a zeroed or wrong leaf;
+# * masked_bk: 2.3e-4 to 2.5e-4 reduced, but 7.9e-3 to 9.9e-3 at full
+#   width, where the largest entry and the worst leaf are both the
+#   embedding's (the other families stayed below 3.4e-3): up to 3e-2
+#   expected: 5e-2 of max |acc| and on the worst leaf;
+# * the "ghost" stream source: 2.4e-7 to 3.2e-7 reduced, 6e-6 to 3.8e-5 at
+#   full width (norms that differ by as much: 3.1e-5 to 4.2e-5, the
+#   embedding's, the router's and wk's ghost norms against the per-example
+#   grads' bf16 rounding), so up to 8e-5 expected: 2e-4; worst leaf up to
+#   3.8e-5: 1e-3; the norms 1e-3;
+# * the forced direct path against the Gram path: 4.2e-7 to 5.6e-7 at T =
+#   128, 2.0e-6 to 2.1e-6 at 256 (the heads; it grows with T; DenseLM's
+#   was 1.05e-5 at 1,024): the ViT's 1e-4
+MOE_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 5e-2,
+           "masked_fused_stream_ghost": 2e-4},
+    "leaf": {"masked_ghost": 2e-1, "masked_bk": 5e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
+MOE_MODELS = {
+    "olmoe-1b-7b": dict(
+        n_layers=3, params=1_464_744_704, physical_batch=2,
+        limits=MOE_LIMITS, fits=MOE_FITS,
+        # at T = 1,024 (T^2 = 1,048,576) each layer's router (2,048 x 64)
+        # takes the kernel; attention (2,048 x 2,048), the head and every
+        # expert dense (T = cap = 160) take the Gram path
+        direct_per_pass=3,
+        ghost_shapes={"olmoe_router": (1024, 2048, 64)}),
+    "deepseek-v2-lite-16b": dict(
+        n_layers=2, params=1_085_287_424, physical_batch=2,
+        limits=MOE_LIMITS, fits=MOE_FITS,
+        # the MoE layer's router and both layers' RoPE key wkr (2,048 x 64)
+        # take the kernel; wdkv (2,048 x 512 = T^2) sits on the boundary
+        # and takes the Gram path with every other dense (the experts at
+        # T = cap = 120)
+        direct_per_pass=3,
+        ghost_shapes={"deepseek_router_wkr": (1024, 2048, 64)}),
+}
+
+
+def check_bk_embed_rerun(device):
+    """BK's embedding grad (coef-scaled dY rows added into their tokens'
+    table rows) at olmoe's vocab and width over (2, 1,024) tokens drawn
+    from 64 ids, so every token repeats, run three times: bit-identical.
+    ``index_add_`` on the same rows, which adds repeated tokens with
+    atomics, is run three times beside it for the record."""
+    import torch
+    from repro_torch.core import layers
+    from repro_torch.core.tape import LayerSpec
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    V, d = 50304, 2048
+    ids = torch.randint(0, 64, (2, 1024), generator=gen, device=device)
+    dy = torch.randn(2, 1024, d, generator=gen, device=device)
+    coef = torch.tensor([0.5, 1.0], device=device)
+    spec = LayerSpec("embed", param_path="emb.w", meta=(("vocab", V),))
+    runs = [layers.bk_grads(spec, {"ids": ids}, dy, coef)["emb.w"]
+            for _ in range(3)]
+    rows = (dy * coef[:, None, None]).reshape(-1, d)
+    adds = [torch.zeros(V, d, device=device).index_add_(
+        0, ids.reshape(-1), rows) for _ in range(3)]
+    res = {"bitwise": all(same_bits(runs[0], r) for r in runs[1:]),
+           "index_add_bitwise": all(same_bits(adds[0], a)
+                                    for a in adds[1:]),
+           "max_abs_vs_index_add": float((runs[0] - adds[0]).abs().max())}
+    assert res["bitwise"], res
+    return res
+
+
+def run_moe(device, timer):
+    """Phase 8 (see the module docstring): BK's embedding grad rerun on
+    repeated tokens, then each MoE model at its cut depth; every session
+    is collected before the next is built."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    res = {"bk_embed_rerun": check_bk_embed_rerun(device)}
+    log(f"bk embedding grad reruns: {json.dumps(res['bk_embed_rerun'])}")
+    res.update({arch: run_lm_model(
+        dataclasses.replace(get_config(arch), n_layers=spec["n_layers"]),
+        spec, MOE_TRAIN, device, timer)
+        for arch, spec in MOE_MODELS.items()})
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -2053,16 +2241,21 @@ def main() -> int:
     record["ssm"] = ssm = run_ssm(device, cuda_ms)
     log(f"ssm phase: {ssm['seconds']:.1f} s")
     phase_end("7")
+    # 8. full-width olmoe-1b-7b and deepseek-v2-lite-16b at 1,024 tokens
+    record["moe"] = moe = run_moe(device, cuda_ms)
+    log(f"moe phase: {moe['seconds']:.1f} s")
+    phase_end("8")
     # the kernels line: launches summed over every fit() run, ViT's,
-    # DenseLM's, the lifecycle's and the SSM phase's (the chaos runs' own
-    # processes aside)
+    # DenseLM's, the lifecycle's, the SSM phase's and the MoE phase's (the
+    # chaos runs' own processes aside)
     counted = [r["launches"] for r in (*record["fit"].values(),
                                        *record["denselm"]["fit"].values(),
                                        *life["fits"].values())]
     counted += [life["checkpoint"]["launches"],
                 life["protocol"]["launches"]]
-    counted += [r["launches"] for arch in SSM_MODELS
-                for r in ssm[arch]["fit"].values()]
+    counted += [r["launches"] for phase, models in ((ssm, SSM_MODELS),
+                                                    (moe, MOE_MODELS))
+                for arch in models for r in phase[arch]["fit"].values()]
     launches = {k: sum(c[k] for c in counted) for k in kernel_wrappers()}
     _, no_time = life["noise_only"]
     kernels = [

@@ -1,10 +1,11 @@
 """DP layer primitives of the port, as in the reference package's
 ``core/layers.py``.
 
-Every parameterised op of the port's models goes through one of five
+Every parameterised op of the port's models goes through one of six
 primitives:
 
     dense            y = x @ W (+ b)
+    dense_stacked    y[e] = x[e] @ W[e] (MoE experts; and its pair form)
     embed            y = E[ids]
     scale            y = x * g          (g broadcast over batch/time)
     bias             y = x + b          (b broadcast over batch/time)
@@ -30,6 +31,7 @@ rule on every dense layer.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -54,6 +56,42 @@ def dense(tape: Tape, name: str, x, w, b=None, *, param_path: str):
     spec = LayerSpec("dense", param_path=param_path,
                      meta=(("has_bias", b is not None),))
     return tape.inject(name, y, spec, {"x": x})
+
+
+def _stacked_matmul(x, w):
+    """x (E, ..., i) @ w (E, i, o) per expert, in f32, cast to x's dtype."""
+    E = x.shape[0]
+    y = torch.bmm(x.float().reshape(E, -1, x.shape[-1]), w.float())
+    return y.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
+
+
+def dense_stacked(tape: Tape, name: str, x, w, *, param_path: str):
+    """Per-expert dense: x (E, ..., i), w (E, i, o) -> (E, ..., o).
+
+    The leading E axis is a 'layers' stack axis of the spec (a tensor axis
+    of the record, not a list level), so expert weights get exact
+    per-example ghost norms and BK grads as layer-stacked weights do."""
+    y = _stacked_matmul(x, w)
+    spec = LayerSpec("dense", param_path=param_path,
+                     meta=(("has_bias", False),), stack=("layers",))
+    return tape.inject(name, y, spec, {"x": x})
+
+
+def dense_stacked_pair(tape: Tape, name: str, x, w1, w3, *,
+                       param_path1: str, param_path2: str):
+    """Two per-expert denses on one input (SwiGLU's gate and up): the input
+    is recorded once, under ``{name}.a``; the second spec carries a
+    ``record_of`` pointer to it, which :func:`resolve_record` follows."""
+    y1 = _stacked_matmul(x, w1)
+    y2 = _stacked_matmul(x, w3)
+    s1 = LayerSpec("dense", param_path=param_path1,
+                   meta=(("has_bias", False),), stack=("layers",))
+    s2 = LayerSpec("dense", param_path=param_path2,
+                   meta=(("has_bias", False), ("record_of", f"{name}.a")),
+                   stack=("layers",))
+    y1 = tape.inject(f"{name}.a", y1, s1, {"x": x})
+    y2 = tape.inject(f"{name}.b", y2, s2, {})
+    return y1, y2
 
 
 def resolve_record(records, name: str, spec: LayerSpec):
@@ -133,12 +171,21 @@ def _stacked(a):
     return a
 
 
-def _layers(a, n_layer_axes: int):
-    """The per-layer entries of ``n_layer_axes`` leading layer axes (list
-    levels or tensor axes), outermost first, as one flat list."""
-    if n_layer_axes == 0:
+def _blocks(a, n_layer_axes: int):
+    """The tensors below the list levels of ``n_layer_axes`` leading layer
+    axes, outermost first, as one flat list; each keeps the layer axes that
+    are tensor axes (a ``dense_stacked`` record's E) in front."""
+    if n_layer_axes == 0 or not isinstance(a, (list, tuple)):
         return [a]
-    return [x for sub in a for x in _layers(sub, n_layer_axes - 1)]
+    return [x for sub in a for x in _blocks(sub, n_layer_axes - 1)]
+
+
+def _list_depth(a, n_layer_axes: int) -> int:
+    """How many of ``n_layer_axes`` leading layer axes are list levels."""
+    depth = 0
+    while depth < n_layer_axes and isinstance(a, (list, tuple)):
+        a, depth = a[0], depth + 1
+    return depth
 
 
 def _lead_shape(a, n_layer_axes: int):
@@ -158,11 +205,18 @@ def _as_btd(a):
 def _map_layers(fn, args, n_layer_axes: int):
     """Apply ``fn`` to each layer of the layer axes in turn (one layer's
     temporaries live at a time) and sum the (B,) results over all of
-    them."""
+    them.  Layer axes that are tensor axes (a ``dense_stacked`` record's
+    E experts) are folded into the batch axis of one call: ``fn`` is
+    row-wise, so each expert's rows get that expert's arithmetic, and the
+    sum still runs over one (B,) row per layer."""
     if n_layer_axes == 0:
         return fn(*args)
-    per = zip(*(_layers(a, n_layer_axes) for a in args))
-    return torch.stack([fn(*a) for a in per]).sum(dim=0)
+    k = n_layer_axes - _list_depth(args[0], n_layer_axes)
+    rows = []
+    for a in zip(*(_blocks(x, n_layer_axes) for x in args)):
+        out = fn(*(t.reshape((-1,) + t.shape[k + 1:]) for t in a))
+        rows.append(out.reshape(math.prod(a[0].shape[:k]), -1))
+    return torch.cat(rows).sum(dim=0)
 
 
 def _sum_except(a, keep_trailing: int, start: int = 1):
@@ -261,9 +315,11 @@ def per_example_sq_norm(spec: LayerSpec, rec: Dict, dY) -> torch.Tensor:
 # book-keeping: clipped summed grads straight from the tape
 # ---------------------------------------------------------------------------
 
-def _coef_mul(a, coef):
-    """Multiply (B, ...) by the per-example coef (B,)."""
-    return a * coef.reshape((-1,) + (1,) * (a.dim() - 1)).to(a.dtype)
+def _coef_mul(a, coef, n_lead: int = 0):
+    """Multiply (lead..., B, ...) by the per-example coef (B,), behind
+    ``n_lead`` leading axes."""
+    return a * coef.reshape((1,) * n_lead + (-1,)
+                            + (1,) * (a.dim() - n_lead - 1)).to(a.dtype)
 
 
 def bk_grads(spec: LayerSpec, rec: Dict, dY, coef) -> Dict[str, torch.Tensor]:
@@ -276,12 +332,49 @@ def bk_grads(spec: LayerSpec, rec: Dict, dY, coef) -> Dict[str, torch.Tensor]:
     rec, dY, nl = _fold(spec, rec, dY)
     if nl == 0:
         return _bk_grads_one(spec, rec, dY, coef)
-    per = [_bk_grads_one(spec, dict(zip(rec, r)), d, coef)
-           for *r, d in zip(*(_layers(v, nl) for v in rec.values()),
-                            _layers(dY, nl))]
+    k = nl - _list_depth(dY, nl)
+    per = [_bk_grads_block(spec, dict(zip(rec, r)), d, coef, k)
+           for *r, d in zip(*(_blocks(v, nl) for v in rec.values()),
+                            _blocks(dY, nl))]
     lead = _lead_shape(dY, nl)
-    return {k: torch.stack([p[k] for p in per]).reshape(
-        lead + per[0][k].shape) for k in per[0]}
+    return {n: torch.stack([p[n] for p in per]).reshape(
+        lead + per[0][n].shape[k:]) for n in per[0]}
+
+
+def _bk_grads_block(spec: LayerSpec, rec: Dict, dY, coef, k: int):
+    """:func:`bk_grads` of one block whose ``k`` leading layer axes are
+    tensor axes: a dense (the experts of ``dense_stacked``) takes one
+    batched product over them, any other kind one layer at a time."""
+    if k == 0:
+        return _bk_grads_one(spec, rec, dY, coef)
+    if spec.kind == "dense" and not spec.get("has_bias", False):
+        lead = dY.shape[:k]
+        x = rec["x"].float().reshape((-1,) + rec["x"].shape[k:])
+        d = _coef_mul(dY.float().reshape((-1,) + dY.shape[k:]), coef, 1)
+        xb = x.reshape(x.shape[0], -1, x.shape[-1])
+        db = d.reshape(d.shape[0], -1, d.shape[-1])
+        return {spec.param_path + ".w": torch.bmm(
+            xb.transpose(1, 2), db).reshape(lead + (xb.shape[-1],
+                                                    db.shape[-1]))}
+    per = [_bk_grads_block(spec, dict(zip(rec, r)), d, coef, k - 1)
+           for *r, d in zip(*rec.values(), dY)]
+    return {n: torch.stack([p[n] for p in per]) for n in per[0]}
+
+
+def _add_rows(n_rows: int, ids, rows):
+    """(n_rows, d) f32 zeros with each of ``rows`` added into row
+    ``ids[i]``, a repeated id's rows in one order on every run (what a
+    bitwise resume needs).  The op differs by device for that: on the CPU
+    ``index_add_`` adds in position order (an accumulating ``index_put_``
+    varies there); on the card ``index_add_`` adds with atomics, in the
+    order the schedule gives, where an accumulating ``index_put_`` sorts
+    the ids and adds each one's rows in turn (``chip_smoke.py`` reruns
+    it)."""
+    out = torch.zeros(n_rows, rows.shape[-1], dtype=torch.float32,
+                      device=rows.device)
+    if rows.is_cuda:
+        return out.index_put_((ids,), rows, accumulate=True)
+    return out.index_add_(0, ids, rows)
 
 
 def _bk_grads_one(spec: LayerSpec, rec: Dict, dY, coef):
@@ -297,11 +390,9 @@ def _bk_grads_one(spec: LayerSpec, rec: Dict, dY, coef):
             out[spec.param_path + ".b"] = db.sum(dim=(0, 1))
         return out
     if spec.kind == "embed":
-        d = dYc.shape[-1]
-        g = torch.zeros(spec.get("vocab"), d, dtype=torch.float32,
-                        device=dYc.device).index_add_(
-            0, rec["ids"].reshape(-1).long(), dYc.reshape(-1, d))
-        return {spec.param_path: g}
+        return {spec.param_path: _add_rows(spec.get("vocab"),
+                                           rec["ids"].reshape(-1).long(),
+                                           dYc.reshape(-1, dYc.shape[-1]))}
     if spec.kind == "scale":
         return {spec.param_path: _sum_except(rec["x"].float() * dYc,
                                              spec.get("gdim", 1), start=0)}

@@ -14,13 +14,13 @@ import numpy as np
 
 def dataset_for_config(cfg, n: int, seq_len: int, seed: int = 0):
     """The synthetic dataset for an ArchConfig's modality family: images for
-    the ViT (``seq_len`` ignored), tokens for the dense, SSM and hybrid
-    LMs; the frontend families (vlm, audio) and MoE raise until they are
+    the ViT (``seq_len`` ignored), tokens for the dense, SSM, hybrid and
+    MoE LMs; the frontend families (vlm, audio) raise until they are
     ported."""
     if cfg.family == "vit":
         return ImageDataset(n, size=cfg.image_size, classes=cfg.n_classes,
                             seed=seed)
-    if cfg.family in ("dense", "ssm", "hybrid"):
+    if cfg.family in ("dense", "ssm", "hybrid", "moe"):
         return TokenDataset(n, seq_len=seq_len, vocab=cfg.vocab, seed=seed)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item 5)")

@@ -11,7 +11,10 @@ tokens, on the card)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
         --seq-len 1024 --physical 2 --n-data 64 --steps 1
 
-(``--arch zamba2-1.2b`` likewise.)
+(``--arch zamba2-1.2b`` likewise.)  The MoE archs (``--arch olmoe-1b-7b``,
+``--arch deepseek-v2-lite-16b``) hold more f32 state at full depth than one
+card has: run them with ``--smoke`` (``chip_smoke.py`` trains them at full
+width, cut in depth).
 
 ``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU;
 ``--optimizer adamw`` takes the generic update; ``--ckpt DIR`` makes the

@@ -32,7 +32,8 @@ op for op, so the rounding points match:
 
 A layer's parameters ``p`` are the port's path-keyed leaves below the
 layer's own path (``{"wq.w": ..., "wq.b": ...}`` for ``blocks.attn``).
-:class:`TokenLM` is the surface the token LMs (dense, SSM, hybrid) share.
+:class:`TokenLM` is the surface the token LMs (dense, SSM, hybrid, MoE)
+share.
 """
 from __future__ import annotations
 
@@ -326,8 +327,14 @@ class TokenLM(nn.Module):
     ``{path: tensor}``, the logits and the per-example loss.  A family
     builds its layers in ``_build(gen, device)``, drawn between ``emb`` and
     ``head``, and runs them in ``_layers(tape, tokens, x)`` on the
-    embedded (B, T, d) activations.  Call the model functionally
-    (:meth:`loss` uses ``torch.func.functional_call``)."""
+    embedded (B, T, d) activations.  A family with ``has_aux`` (the MoE
+    LMs) returns ``(x, aux)`` from ``_layers``, a (B,) f32 auxiliary loss
+    that :meth:`forward` adds to the CE (the reference's ``lm_head_ce(...)
+    + aux``); the others return ``x`` and their loss is the CE alone.  Call
+    the model functionally (:meth:`loss` uses
+    ``torch.func.functional_call``)."""
+
+    has_aux = False
 
     def __init__(self, cfg, *, device, seed: int = 0):
         super().__init__()
@@ -352,11 +359,17 @@ class TokenLM(nn.Module):
         flatten order (detached views sharing the module's storage)."""
         return path_params(self)
 
-    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
-        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
+    def backbone_aux(self, tokens: torch.Tensor, tape: Tape):
+        """(B, T) token ids -> ((B, T, d) final-normed hidden states, the
+        (B,) auxiliary loss or None)."""
         x = L.embed(tape, "emb", tokens, self.emb.w, param_path="emb.w")
         x = self._layers(tape, tokens, x.to(self.cfg.act_dtype))
-        return rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf")
+        x, aux = x if self.has_aux else (x, None)
+        return rmsnorm(tape, "lnf", x, {"w": self.lnf.w}, path="lnf"), aux
+
+    def backbone(self, tokens: torch.Tensor, tape: Tape) -> torch.Tensor:
+        """(B, T) token ids -> (B, T, d) final-normed hidden states."""
+        return self.backbone_aux(tokens, tape)[0]
 
     def logits(self, tokens: torch.Tensor,
                tape: Optional[Tape] = None) -> torch.Tensor:
@@ -368,10 +381,12 @@ class TokenLM(nn.Module):
     def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
                 tape: Optional[Tape] = None) -> torch.Tensor:
         """(B,) per-example mean next-token CE (the head chunked over T
-        with ``cfg.ce_chunk``); ``tape`` defaults to a plain one."""
+        with ``cfg.ce_chunk``), plus the auxiliary loss of a family that
+        has one; ``tape`` defaults to a plain one."""
         tape = Tape() if tape is None else tape
-        return lm_head_ce(tape, self.head.w, self.backbone(tokens, tape),
-                          labels, self.cfg)
+        x, aux = self.backbone_aux(tokens, tape)
+        ce = lm_head_ce(tape, self.head.w, x, labels, self.cfg)
+        return ce if aux is None else ce + aux
 
     def loss(self, params: Dict[str, torch.Tensor], batch: dict,
              tape: Optional[Tape] = None) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """Architecture registry: name -> ArchConfig, family -> model class.
 
-The port builds the ``vit``, ``dense``, ``ssm`` (Mamba2) and ``hybrid``
-(Zamba2) families; every other family of the reference's registry (``moe``,
-``vlm``, ``audio``) raises until ROADMAP queue 1, item 5 ports it.
+The port builds the ``vit``, ``dense``, ``ssm`` (Mamba2), ``hybrid``
+(Zamba2) and ``moe`` families (``DeepseekV2LM`` when the config has an MLA
+latent, ``kv_lora``, else ``MoeLM``, as the reference's ``_family_cls``
+chooses); ``vlm`` and ``audio`` raise until ROADMAP queue 1, item 5 ports
+them.
 """
 from __future__ import annotations
 
 from ..configs import ArchConfig, get_config
 from .mamba2 import Mamba2LM
+from .mla import DeepseekV2LM
+from .moe import MoeLM
 from .transformer import DenseLM
 from .vit import ViT
 from .zamba2 import Zamba2LM
@@ -28,9 +32,13 @@ _FAMILIES = {"vit": ViT, "dense": DenseLM, "ssm": Mamba2LM,
 def build(cfg: ArchConfig, *, device, seed: int = 0):
     """The model of ``cfg``'s family on ``device``, initialised from
     ``seed``."""
-    cls = _FAMILIES.get(cfg.family)
+    if cfg.family == "moe":
+        cls = DeepseekV2LM if cfg.kv_lora else MoeLM
+    else:
+        cls = _FAMILIES.get(cfg.family)
     if cls is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item "
-            f"5); the port builds {sorted(_FAMILIES)}")
+            f"5: the vlm and audio families with EmbeddingDataset); the port "
+            f"builds {sorted([*_FAMILIES, 'moe'])}")
     return cls(cfg, device=device, seed=seed)

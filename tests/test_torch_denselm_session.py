@@ -57,12 +57,12 @@ def test_registry():
     assert ARCH_IDS == ref_registry.ARCH_IDS
     assert isinstance(build(get_config("qwen2-0.5b").reduced(),
                             device="cpu"), DenseLM)
-    moe = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              family="moe")
+    vlm = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              family="vlm")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        build(moe, device="cpu")
+        build(vlm, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        dataset_for_config(moe, 4, 8)
+        dataset_for_config(vlm, 4, 8)
 
 
 def test_token_dataset_matches_reference():
