@@ -41,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                source; every dense layer's ghost norm through the kernel
                (forced direct path) against the einsum (forced ghost path);
                one ``accumulate`` per engine timed against ``nonprivate``
-               (the paper's overhead ratio); and the training CLI with
+               (the paper's overhead ratio; here and in every later phase
+               its first and last timed calls bit-identical, what a
+               bitwise resume needs); and the training CLI with
                ``masked_pe`` and each new engine;
 5. denselm  — full-width qwen2-0.5b (630,167,424 params) at 1,024 tokens,
                after the ViT session is freed: ``ghost_norm_dense`` at its
@@ -112,9 +114,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``MOE_LIMITS`` and every dense layer's forced direct path
                against its Gram path; one norm pass; one accumulate per
                engine against ``nonprivate``, after one with every example
-               masked out that must add exactly 0, and two of its timed
-               calls bit-identical; and BK's embedding grad run three
-               times on tokens that all repeat, bit-identical.
+               masked out that must add exactly 0; and BK's embedding
+               grad run three times on tokens that all repeat,
+               bit-identical.
 
 The line before the last lists the kernels as JSON (launches summed over
 every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM phase's and
@@ -1186,7 +1188,7 @@ ACCUMULATE_ENGINES = ("nonprivate", "masked_pe", "masked_fused",
                       "masked_fused_stream", "masked_ghost", "masked_bk")
 
 
-def time_accumulate(session, iters=3, rerun=False):
+def time_accumulate(session, iters=3):
     """One accumulate of the fixed physical batch per engine (host clock
     around synchronised calls, after one warm-up call), and its peak
     memory; the ratio to nonprivate is the paper's DP overhead.  The
@@ -1194,9 +1196,9 @@ def time_accumulate(session, iters=3, rerun=False):
     call: at DenseLM's width the card has no room for a second one.  The
     warm-up call masks every example out and must leave the accumulator
     exactly 0: a masked-out example's gradient, and its norm, reach no sum
-    (at the SSM models' batch of 1 the fixed batch masks none).  With
-    ``rerun`` the first and last timed calls' accumulators, copied to the
-    host, must be bit-identical (what a bitwise resume needs)."""
+    (at the SSM models' batch of 1 the fixed batch masks none).  The first
+    and last timed calls' accumulators, copied to the host, must be
+    bit-identical (what a bitwise resume needs)."""
     import torch
     from repro_torch.core.engine import DPConfig, build_accumulate_fn
 
@@ -1228,16 +1230,15 @@ def time_accumulate(session, iters=3, rerun=False):
             if cuda:
                 torch.cuda.synchronize(dev)
             times.append(1e3 * (time.perf_counter() - t0))
-            if rerun and i == 0:
-                first = state.grad_acc.cpu()
+            if i == 0:
+                first = state.grad_acc.to("cpu", copy=True)
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
                   "all_ms": times, "masked_out_acc_nonzero": nonzero,
                   **(memory_record(dev, retries) if cuda
                      else {"peak_mem_bytes": None})}
-        if rerun:
-            res[e]["rerun_bitwise"] = same_bits(first, state.grad_acc.cpu())
-            del first
-            assert res[e]["rerun_bitwise"], (e, "reruns differ")
+        res[e]["rerun_bitwise"] = same_bits(first, state.grad_acc.cpu())
+        del first
+        assert res[e]["rerun_bitwise"], (e, "reruns differ")
         del acc_fn
         if cuda:
             torch.cuda.empty_cache()
@@ -1973,8 +1974,7 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
         spec["direct_per_pass"], res["norm_pass"]
     mark("norm_pass")
     torch.cuda.empty_cache()
-    res["accumulate"] = time_accumulate(session,
-                                        rerun=cfg.family == "moe")
+    res["accumulate"] = time_accumulate(session)
     log(f"{arch} accumulate of one physical batch of {B} x "
         f"{train_kw['seq_len']} tokens, ms and ratio to nonprivate: "
         f"{json.dumps(res['accumulate'])}")

@@ -343,8 +343,10 @@ def bk_grads(spec: LayerSpec, rec: Dict, dY, coef) -> Dict[str, torch.Tensor]:
 
 def _bk_grads_block(spec: LayerSpec, rec: Dict, dY, coef, k: int):
     """:func:`bk_grads` of one block whose ``k`` leading layer axes are
-    tensor axes: a dense (the experts of ``dense_stacked``) takes one
-    batched product over them, any other kind one layer at a time."""
+    tensor axes (the experts of ``dense_stacked``, or the 'layers' axes
+    that :func:`_fold` stacks when it folds a 'uses' axis): a dense without
+    bias takes one batched product over them, any other record one layer
+    at a time."""
     if k == 0:
         return _bk_grads_one(spec, rec, dY, coef)
     if spec.kind == "dense" and not spec.get("has_bias", False):

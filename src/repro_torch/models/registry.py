@@ -25,20 +25,25 @@ ARCH_IDS = [
     "mamba2-1.3b", "whisper-base", "llama3.2-3b", "vit-base",
 ]
 
+
+def _moe(cfg: ArchConfig, *, device, seed: int):
+    """The MoE family's model: ``DeepseekV2LM`` when the config has an MLA
+    latent, else ``MoeLM``."""
+    cls = DeepseekV2LM if cfg.kv_lora else MoeLM
+    return cls(cfg, device=device, seed=seed)
+
+
 _FAMILIES = {"vit": ViT, "dense": DenseLM, "ssm": Mamba2LM,
-             "hybrid": Zamba2LM}
+             "hybrid": Zamba2LM, "moe": _moe}
 
 
 def build(cfg: ArchConfig, *, device, seed: int = 0):
     """The model of ``cfg``'s family on ``device``, initialised from
     ``seed``."""
-    if cfg.family == "moe":
-        cls = DeepseekV2LM if cfg.kv_lora else MoeLM
-    else:
-        cls = _FAMILIES.get(cfg.family)
+    cls = _FAMILIES.get(cfg.family)
     if cls is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item "
             f"5: the vlm and audio families with EmbeddingDataset); the port "
-            f"builds {sorted([*_FAMILIES, 'moe'])}")
+            f"builds {sorted(_FAMILIES)}")
     return cls(cfg, device=device, seed=seed)
