@@ -77,10 +77,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
                each resumed bitwise from a snapshot; and the paper-protocol
                twin's four engines at full width;
-7. ssm      — full-width mamba2-1.3b (1,446,505,472 params) and
-               zamba2-1.2b (1,170,313,344) at 1,024 tokens, after the
-               lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
-               and zamba2's shared-block shapes (T_eff = 6,144), the
+7. ssm      — full-width mamba2-1.3b at 16 of its 48 layers
+               (619,467,776 params) and zamba2-1.2b at 32 of 38 (5 supers
+               and the 2-layer tail; 1,016,819,712) at 1,024 tokens, after
+               the lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
+               and zamba2's shared-block shapes (T_eff = 5,120), the
                one-launch update and the clip kernels at each model's flat
                length (a physical batch of 1); ``fit()`` per engine (mamba2:
                ``masked_pe``, ``masked_ghost``, ``masked_bk``,
@@ -116,11 +117,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                engine against ``nonprivate``, after one with every example
                masked out that must add exactly 0; and BK's embedding
                grad run three times on tokens that all repeat,
-               bit-identical.
+               bit-identical;
+9. frontend — full-width, full-depth whisper-base (97,241,088 params) at
+               1,500 frames and 448 decoder tokens, a physical batch of 8,
+               and full-width llama-3.2-vision-90b cut to 2 layers with
+               ``cross_every`` 2 (one RoPE self-attention layer, one gated
+               cross-attention layer; 3,823,149,057 params, the first flat
+               buffer above 2^31 elements) at 1,024 text tokens and 1,601
+               image tokens, a physical batch of 1, its gates set to
+               ``VLM_GATE`` (the reference initialises them to 0, which
+               zeroes the cross attention's and ``proj``'s gradients), after
+               the MoE phase: ``ghost_norm_dense`` at whisper's three
+               direct-path shapes (ragged T = 1,500), the update and both
+               clip kernels at whisper's flat length and over the VLM's
+               whole 3.82G buffer, held against their plain versions on the
+               leaf that holds element 2^31 and on the buffer's tail;
+               ``fit()`` with every engine (whisper: ``masked_pe``,
+               ``masked_ghost``, ``masked_bk``, ``masked_fused_stream`` 2
+               steps each, ``masked_fused`` and ``nonprivate`` 1; the VLM 1
+               step each, without momentum), ``ghost_norm_dense`` launched
+               48 times per whisper norm pass (every encoder dense and the
+               decoder's cross-attention ``wk``/``wv``) and 0 on the VLM;
+               on one physical batch ``masked_fused`` and the stream at
+               tile = batch bitwise against ``masked_pe``, the record
+               engines under ``FRONTEND_LIMITS``, every dense layer's
+               forced direct path against its Gram path; one norm pass
+               with the kernel's share of its device time; one accumulate
+               per engine against ``nonprivate``, after one with every
+               example masked out that must add exactly 0.
 
 The line before the last lists the kernels as JSON (launches summed over
-every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM phase's and
-the MoE phase's, the noise-only body as ``noisy_sgd_update``'s
+every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM, MoE and
+frontend phases', the noise-only body as ``noisy_sgd_update``'s
 ``noise_only`` record; times at ViT-Base's main-path shapes, the other
 phases' in the record); the last line is ``{"ok": true, "device":
 {...}}``.  The full record goes to
@@ -307,6 +335,31 @@ def same_bits(a, b) -> bool:
     import torch
     return bool(torch.equal(a.contiguous().view(torch.int32),
                             b.contiguous().view(torch.int32)))
+
+
+def host_buffer(n: int):
+    """An f32 host buffer of n elements, page-locked when there is a card:
+    a 15 GB copy to or from pageable memory takes several seconds, to a
+    locked one well under one."""
+    import torch
+    return torch.empty(n, dtype=torch.float32,
+                       pin_memory=torch.cuda.is_available())
+
+
+# elements per piece when a device tensor is compared with a host copy
+COMPARE_PIECE = 1 << 28
+
+
+def same_bits_as_host(dev_t, host_t) -> bool:
+    """``same_bits`` of a device tensor and a host copy of it, the host copy
+    brought back COMPARE_PIECE elements at a time (one piece's room on
+    the card)."""
+    flat_d, flat_h = dev_t.reshape(-1), host_t.reshape(-1)
+    if flat_d.numel() != flat_h.numel():
+        return False
+    return all(same_bits(flat_d[i:i + COMPARE_PIECE],
+                         flat_h[i:i + COMPARE_PIECE].to(flat_d.device))
+               for i in range(0, flat_d.numel(), COMPARE_PIECE))
 
 
 def nvidia_smi_line() -> str:
@@ -608,7 +661,8 @@ def check_ghost_norm(device, timer, shapes=None):
 
     gen = torch.Generator(device=device).manual_seed(3)
     res, max_err = {}, 0.0
-    for label, (B, T, di, do) in (shapes or GHOST_NORM_SHAPES).items():
+    shapes = GHOST_NORM_SHAPES if shapes is None else shapes
+    for label, (B, T, di, do) in shapes.items():
         for dt in (torch.bfloat16, torch.float32):
             if dt == torch.float32 and label not in GHOST_NORM_F32:
                 continue
@@ -747,9 +801,10 @@ def read_counts() -> dict:
 
 
 def run_fit(arch, device, train_kw, engine="masked_fused_stream",
-            direct_denses=0, optimizer=None, fit_kw=None):
+            direct_denses=0, optimizer=None, fit_kw=None, prepare=None):
     """fit() of ``arch`` (a name or an ArchConfig) with ``engine`` (and
-    ``optimizer``, else the TrainConfig's);
+    ``optimizer``, else the TrainConfig's; ``prepare``, a function of the
+    session, runs before the fit);
     every kernel counter is set to 0 just before and read just after.  The
     update launches ``noisy_sgd_update`` once per step when the optimizer
     is fused, else its noise-only body once per step and the fused form
@@ -768,6 +823,8 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     session = PrivacySession.from_config(
         arch, DPConfig(engine=engine, clip_norm=4.63), tc, device=device,
         optimizer=optimizer)
+    if prepare is not None:
+        prepare(session)
     if not isinstance(arch, str):
         arch = f"{arch.name} ({arch.n_layers} layers)"
     fused = fused_sgd(session.optimizer)
@@ -1067,17 +1124,21 @@ def compare_record_engines(session, limits, stream_pe=False):
         routing["routing"] = routing_agreement(session, batch)
         log(f"routing, batched vs per-example forward: "
             f"{json.dumps(routing['routing'])}")
-    def host_flat(summed):
-        """The summed grads flattened on the host, their device copies
-        released: at DenseLM's width the engines need the card's room."""
-        acc = view.flatten(summed).cpu()
+    # two host buffers, masked_pe's sum and each engine's in turn
+    acc_pe, acc_host = host_buffer(view.total), host_buffer(view.total)
+
+    def host_flat(summed, out):
+        """The summed grads flattened into the host buffer ``out``, their
+        device copies released: at DenseLM's width the engines need the
+        card's room."""
+        out.copy_(view.flatten(summed))
         summed.clear()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-        return acc
+        return out
 
     summed, pe_aux = run["masked_pe"](loss_fn, params, batch, mask, 4.63)
-    acc_pe = host_flat(summed)
+    host_flat(summed, acc_pe)
     dev = session.device
     # the statistics are taken on the card, after each engine's memory is
     # released (on the host they took a minute a model at SSM width)
@@ -1092,20 +1153,25 @@ def compare_record_engines(session, limits, stream_pe=False):
 
     def against_pe(acc, norms):
         norms = norms.cpu()
-        a, p = acc.to(dev), acc_pe.to(dev)
-        d = (a - p).abs_()
+        # a copy of acc, taken in place into |acc - pe| once compared: two
+        # flat buffers on the card besides the session's (at the VLM's
+        # 3.82G a third would not fit)
+        a, p = acc.to(dev, copy=True), acc_pe.to(dev)
+        bitwise = same_bits(a, p)
+        d = a.sub_(p).abs_()
+        del a, p
         leaf = {nm: float(d[o:o + n].max()) / max(top, LEAF_FLOOR * scale)
                 for nm, o, n, top in zip(view.names, view.offsets,
                                          view.sizes, pe_leaf_max)}
         worst = max(leaf, key=leaf.get)
         err = float(d.max())
-        out = {"bitwise": same_bits(a, p), "max_abs_err": err,
+        out = {"bitwise": bitwise, "max_abs_err": err,
                "rel_to_max_acc": err / scale,
                "rel_l2_err": float(d.norm()) / pe_l2,
                "worst_leaf": worst, "worst_leaf_rel_err": leaf[worst],
                "norms_max_rel_err": float(((norms - pe_norms).abs()
                                            / pe_norms).max())}
-        del a, p, d
+        del d
         return out
 
     def hold(key, r):
@@ -1117,7 +1183,7 @@ def compare_record_engines(session, limits, stream_pe=False):
     for e in ("masked_fused", "masked_ghost", "masked_bk"):
         kw = {"check_coverage": True} if e == "masked_bk" else {}
         summed, aux = run[e](loss_fn, params, batch, mask, 4.63, **kw)
-        acc = host_flat(summed)
+        acc = host_flat(summed, acc_host)
         res[e] = against_pe(acc, aux["per_example_norms"])
         if e == "masked_ghost":
             ghost_norms = aux["per_example_norms"]
@@ -1157,7 +1223,7 @@ def compare_record_engines(session, limits, stream_pe=False):
     log(f"masked_fused_stream (ghost norms) vs masked_pe: {json.dumps(r)}")
     hold("masked_fused_stream_ghost", r)
     assert r["norms_bitwise_vs_masked_ghost"], r
-    del acc, acc_pe
+    del acc, acc_pe, acc_host
     # every dense layer: the kernel (direct) against the einsum (ghost)
     dEps, records, specs, _ = _eps_backward(loss_fn, params, batch)
     per_layer = {}
@@ -1197,8 +1263,9 @@ def time_accumulate(session, iters=3):
     warm-up call masks every example out and must leave the accumulator
     exactly 0: a masked-out example's gradient, and its norm, reach no sum
     (at the SSM models' batch of 1 the fixed batch masks none).  The first
-    and last timed calls' accumulators, copied to the host, must be
-    bit-identical (what a bitwise resume needs)."""
+    and last timed calls' accumulators must be bit-identical (what a
+    bitwise resume needs): the first is kept in a page-locked host buffer
+    and compared with the last piece by piece on the card."""
     import torch
     from repro_torch.core.engine import DPConfig, build_accumulate_fn
 
@@ -1206,6 +1273,7 @@ def time_accumulate(session, iters=3):
     dev = session.device
     B = int(mask.shape[0])
     state = session.state
+    first = host_buffer(state.grad_acc.numel())
     res = {}
     for e in ACCUMULATE_ENGINES:
         acc_fn = build_accumulate_fn(session.loss_fn, DPConfig(
@@ -1220,7 +1288,7 @@ def time_accumulate(session, iters=3):
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             retries = alloc_retries(dev)
-        times, first = [], None
+        times = []
         for i in range(iters):
             state.grad_acc.zero_()
             if cuda:
@@ -1231,13 +1299,12 @@ def time_accumulate(session, iters=3):
                 torch.cuda.synchronize(dev)
             times.append(1e3 * (time.perf_counter() - t0))
             if i == 0:
-                first = state.grad_acc.to("cpu", copy=True)
+                first.copy_(state.grad_acc)
         res[e] = {"ms": sum(times) / iters, "min_ms": min(times),
                   "all_ms": times, "masked_out_acc_nonzero": nonzero,
                   **(memory_record(dev, retries) if cuda
                      else {"peak_mem_bytes": None})}
-        res[e]["rerun_bitwise"] = same_bits(first, state.grad_acc.cpu())
-        del first
+        res[e]["rerun_bitwise"] = same_bits_as_host(state.grad_acc, first)
         assert res[e]["rerun_bitwise"], (e, "reruns differ")
         del acc_fn
         if cuda:
@@ -1304,10 +1371,14 @@ def norm_pass_cost(session):
     kernels = device_kernels(norm_pass)
     if kernels is not None:
         ours = [k["us"] for k in kernels if "ghost_norm" in k["name"]]
+        total = sum(k["us"] for k in kernels)
         res.update({"kernel_device_us_all_calls": sum(ours),
                     "kernel_device_us_per_call": sum(ours) / max(len(ours),
                                                                  1),
-                    "device_us_all_kernels": sum(k["us"] for k in kernels),
+                    "kernel_calls_profiled": len(ours),
+                    "device_us_all_kernels": total,
+                    "kernel_share_of_device_time": sum(ours) / max(total,
+                                                                   1e-9),
                     "device_kernels_in_pass": len(kernels)})
     del dEps, records
     return res
@@ -1746,13 +1817,19 @@ def run_lifecycle(device, timer, view):
 # phase 7: the SSM and hybrid families
 # --------------------------------------------------------------------------
 
-# full-width mamba2-1.3b and zamba2-1.2b (the reference's configs), bf16
+# full-width mamba2-1.3b and zamba2-1.2b (the reference's configs: every
+# width, the state, the heads, the chunk, zamba2's attn_every of 6), bf16
 # activations, f32 params, random weights from the seed, at 1,024 tokens (a
-# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  The
-# physical batch is the largest of 4, 2 and 1 at which masked_fused fits:
-# 1 for both (at 2 it ran out of the card's memory on both; at 1 it peaks
-# at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on
-# zamba2; H100 80GB HBM3, 700 W)
+# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  Depth
+# is cut for the script's time, as phase 9 needs it: mamba2 16 of its 48
+# layers; zamba2 32 of 38, 5 supers of 6 and the 2-layer tail, so that its
+# shared block still folds 5 uses into T_eff = 5,120 (T_eff^2 = 26.2M above
+# the 2,048 x 8,192 of its widest dense: the direct path, as at full depth;
+# 4 supers would give 16.8M, the boundary).  The physical batch is the
+# largest of 4, 2 and 1 at which masked_fused fits: 1 for both (at 2 it ran
+# out of the card's memory on both at full depth; at 1 it peaked at 66.5 GB
+# allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on zamba2; H100 80GB
+# HBM3, 700 W)
 SSM_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
                  smoke=False)
 # the record engines against masked_pe on one physical batch, per model,
@@ -1785,7 +1862,8 @@ MAMBA2_LIMITS = {
     "norms": 1e-3, "forced": 1e-4}
 SSM_MODELS = {
     "mamba2-1.3b": dict(
-        params=1_446_505_472, physical_batch=1, limits=MAMBA2_LIMITS,
+        n_layers=16, params=619_467_776, physical_batch=1,
+        limits=MAMBA2_LIMITS,
         # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
         # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
         # and 2,896): the kernel runs in the forced-path check alone
@@ -1796,18 +1874,19 @@ SSM_MODELS = {
         ghost_shapes={"mamba2_in_proj": (1024, 2048, 8512),
                       "mamba2_out_proj": (1024, 4096, 2048)}),
     "zamba2-1.2b": dict(
-        params=1_170_313_344, physical_batch=1, limits=DENSELM_LIMITS,
-        # the shared block's records fold its 6 uses into T_eff = 6,144
-        # (T_eff^2 = 37.7M above every din dout): wq, wk, wv, wo (2,048 x
+        n_layers=32, params=1_016_819_712, physical_batch=1,
+        limits=DENSELM_LIMITS,
+        # the shared block's records fold its 5 uses into T_eff = 5,120
+        # (T_eff^2 = 26.2M above every din dout): wq, wk, wv, wo (2,048 x
         # 2,048), w1, w3 (2,048 x 8,192) and w2 (8,192 x 2,048) take the
         # kernel, once each per norm pass; the mamba denses and the head
         # take the Gram path
         direct_per_pass=7,
         fits=(("masked_ghost", 2), ("masked_bk", 2),
               ("masked_fused_stream", 2), ("nonprivate", 1)),
-        ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
-                      "zamba2_w1_w3": (6144, 2048, 8192),
-                      "zamba2_w2": (6144, 8192, 2048)}),
+        ghost_shapes={"zamba2_attn": (5120, 2048, 2048),
+                      "zamba2_w1_w3": (5120, 2048, 8192),
+                      "zamba2_w2": (5120, 8192, 2048)}),
 }
 # SSD on one layer's real activations (f32): the chunked scan against a
 # per-token ssd_step loop and against chunk 16, at the reference's bounds
@@ -1876,11 +1955,14 @@ def check_ssd(session):
 
 
 def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
-    """One model of phases 7 and 8 (``cfg`` an ArchConfig, ``spec`` its
-    entry of SSM_MODELS or MOE_MODELS): the parameter count, the kernels
-    at its shapes, fit() per engine with its launches, the model's own
-    ``checks`` (name -> function of a session), the engines on one
-    physical batch, one norm pass and the accumulate times."""
+    """One model of phases 7, 8 and 9 (``cfg`` an ArchConfig, ``spec``
+    its entry of SSM_MODELS, MOE_MODELS or FRONTEND_MODELS): the parameter
+    count, the kernels at its shapes (over a flat buffer past
+    BIG_FLAT_AT, held on windows), fit() per engine with its launches,
+    the model's own ``checks`` (name -> function of a session), the
+    engines on one physical batch, one norm pass and the accumulate
+    times.  ``spec["prepare"]``, where given, runs on every session before
+    it is used."""
     import torch
     from repro_torch.core import DPConfig
     from repro_torch.core.session import PrivacySession, TrainConfig
@@ -1918,22 +2000,29 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
     log(f"{arch} ghost_norm_dense: {json.dumps(gn_checks)}")
     mark("ghost_norm_dense")
     torch.cuda.empty_cache()
-    tree, tree_err = check_tree_noisy_update(view, device, (0x1234, 0xBEEF))
-    kernel_checks["noisy_sgd_update"] = {"checks": {"tree": tree},
-                                         "max_abs_err": tree_err}
-    torch.cuda.empty_cache()
-    nu_time, nu_checks = time_tree_update(view, device, timer)
-    kernel_checks["noisy_sgd_update"]["checks"].update(nu_checks)
-    kernel_checks["noisy_sgd_update"].update(nu_time)
-    torch.cuda.empty_cache()
-    ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer)
-    kernel_checks["clip_accum_inplace"] = {"checks": ca_checks,
-                                           "max_abs_err": ca_err, **ca_time}
-    torch.cuda.empty_cache()
-    cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device, B,
-                                                           timer)
-    kernel_checks["clip_accum"] = {"checks": cr_checks, "max_abs_err": cr_err,
-                                   **cr_time}
+    if view.total > BIG_FLAT_AT:
+        # several whole-buffer temporaries would not fit: the kernels run
+        # over the whole buffer and are held on windows of it
+        kernel_checks.update(check_big_flat(view, device, B, timer))
+    else:
+        tree, tree_err = check_tree_noisy_update(view, device,
+                                                 (0x1234, 0xBEEF))
+        kernel_checks["noisy_sgd_update"] = {"checks": {"tree": tree},
+                                             "max_abs_err": tree_err}
+        torch.cuda.empty_cache()
+        nu_time, nu_checks = time_tree_update(view, device, timer)
+        kernel_checks["noisy_sgd_update"]["checks"].update(nu_checks)
+        kernel_checks["noisy_sgd_update"].update(nu_time)
+        torch.cuda.empty_cache()
+        ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer)
+        kernel_checks["clip_accum_inplace"] = {"checks": ca_checks,
+                                               "max_abs_err": ca_err,
+                                               **ca_time}
+        torch.cuda.empty_cache()
+        cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device,
+                                                               B, timer)
+        kernel_checks["clip_accum"] = {"checks": cr_checks,
+                                       "max_abs_err": cr_err, **cr_time}
     torch.cuda.empty_cache()
     log(f"{arch} update and clip_accum: " + json.dumps(
         {k: v for k, v in kernel_checks.items() if k != "ghost_norm_dense"}))
@@ -1942,13 +2031,15 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
     res["direct_denses_per_norm_pass"] = spec["direct_per_pass"]
     res["fit"] = {}
     session = None
+    prepare = spec.get("prepare")
     for engine, steps in spec["fits"]:
         del session
         gc.collect()
         torch.cuda.empty_cache()
         session, rec, _ = run_fit(cfg, device, dict(train, steps=steps),
                                   engine,
-                                  direct_denses=spec["direct_per_pass"])
+                                  direct_denses=spec["direct_per_pass"],
+                                  prepare=prepare)
         res["fit"][engine] = rec
         log(f"{arch} fit {engine}: {json.dumps(rec)}")
     mark("fits")
@@ -1959,6 +2050,8 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
     session = PrivacySession.from_config(
         cfg, DPConfig(engine="masked_pe", clip_norm=4.63),
         TrainConfig(**dict(train, steps=1, momentum=0.0)), device=device)
+    if prepare is not None:
+        prepare(session)
     for name, check in (checks or {}).items():
         res[name] = check(session)
         log(f"{arch} {name}: {json.dumps(res[name])}")
@@ -1987,16 +2080,21 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
 
 
 def run_ssm_model(arch, device, timer):
-    """One model of phase 7, with the SSD check."""
+    """One model of phase 7 at its cut depth, with the SSD check."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    return run_lm_model(get_config(arch), SSM_MODELS[arch], SSM_TRAIN,
-                        device, timer, checks={"ssd": check_ssd})
+    spec = SSM_MODELS[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=spec["n_layers"])
+    return run_lm_model(cfg, spec, SSM_TRAIN, device, timer,
+                        checks={"ssd": check_ssd})
 
 
 def run_ssm(device, timer):
     """Phase 7 (see the module docstring).  At one example a physical
-    batch mamba2's per-example engines reach 79 GB reserved: every session
-    is collected (``gc.collect``) before the next is built."""
+    batch mamba2's per-example engines reached 79 GB reserved at full
+    depth: every session is collected (``gc.collect``) before the next is
+    built."""
     t0 = time.perf_counter()
     res = {arch: run_ssm_model(arch, device, timer) for arch in SSM_MODELS}
     res["seconds"] = time.perf_counter() - t0
@@ -2117,6 +2215,320 @@ def run_moe(device, timer):
         dataclasses.replace(get_config(arch), n_layers=spec["n_layers"]),
         spec, MOE_TRAIN, device, timer)
         for arch, spec in MOE_MODELS.items()})
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 9: the frontend families
+# --------------------------------------------------------------------------
+
+# past this flat length (the first element past int32 indexing) the
+# kernels' checks run over the whole buffer and compare on windows, one of
+# which straddles it: three or four whole-buffer f32 temporaries (15.3 GB
+# each at the VLM's 3.82G) would not fit beside the operands.  The clip
+# kernels are also held on the buffer's last BIG_FLAT_TAIL elements (the
+# alignment pad and the last leaf's end)
+BIG_FLAT_AT = 2 ** 31
+BIG_FLAT_TAIL = 1 << 24
+# cuBLAS's gemv takes at most 2^31 - 1 rows: past that length no single
+# PyTorch call computes the clip kernels' function (addmv_ and coef @ g
+# raise), so the big buffer's library_ms is None
+GEMV_MAX_ROWS = 2 ** 31 - 1
+# the VLM's gates (one 0-d scalar per super) before every fit and check:
+# the reference initialises them to 0, which makes the cross attention's
+# and proj's gradients exactly zero, so every check on fresh weights
+# would hold zero against zero on those leaves
+VLM_GATE = 0.5
+FRONTEND_FITS = (("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
+                 ("masked_fused_stream", 2), ("masked_fused", 1),
+                 ("nonprivate", 1))
+# the record engines against masked_pe on one physical batch, set before
+# the first run on the card from the CPU's bf16 values (compare_record_
+# engines with stream_pe: reduced whisper-base at 192 frames and 16 tokens,
+# a physical batch of 4; whisper two-layer cuts at full width, d 512, with
+# a vocab of 4,096 at 300 frames and T = 64 (B = 2, seeds 0 and 1) and
+# with the full vocab at 1,500 frames and T = 448 (B = 2 and 4); the
+# reduced VLM at T = 128 (B = 4 and 1); a VLM cut at d 512 (8 heads over
+# 2 KV heads, d_ff 1,792, 64 image tokens of 160, vocab 4,096, T = 128;
+# B = 2 seeds 0 and 1, B = 1), its gates at VLM_GATE) and the card-over-CPU
+# ratios the earlier families showed (ghost 1.5-2x of max |acc| and
+# 1.75-6x on the worst leaf; BK 1.2-3x of max |acc|, 0.6-0.7x on the worst
+# leaf):
+# * masked_ghost: whisper 2.1e-3 to 4.9e-3 of max |acc|, the VLM 1.0e-2 to
+#   1.5e-2, so up to 3e-2 expected: 5e-2.  Worst leaf: at whisper's full
+#   vocab 4.1e-3 to 4.4e-3, but 7.5e-2 to 1.4e-1 at a vocab of 4,096 (the
+#   key biases, whose true gradient is 0: rounding noise on both sides,
+#   against the floor of 1e-3 of a smaller max |acc|), and on the VLM up to
+#   1.2e-1 on the gate (one scalar summed over every token and width): the
+#   6x ratio would reach 0.7 on the gate, so 5e-1, half the 1.0 of a zeroed
+#   leaf (a wrong one reads O(1));
+# * masked_bk: 1.8e-4 to 1.2e-3 of max |acc|, so up to 3.6e-3 expected:
+#   DenseLM's 2e-2; worst leaf 2.8e-3 to 1.4e-2 (the gate again; the layer
+#   norms' gains): the MoE phase's 5e-2;
+# * the "ghost" stream source: up to 2.7e-6 of max |acc| and on the worst
+#   leaf (0 at 1,500 frames): the MoE phase's 2e-4 and 1e-3; the norms up
+#   to 2.1e-6 relative: 1e-3;
+# * the forced direct path against the Gram path: up to 1.8e-6 (6.2e-7 at
+#   1,500 frames; it grows with T and width, DenseLM's 1.05e-5 on the card
+#   at 1,024): the ViT's 1e-4
+FRONTEND_LIMITS = {
+    "pe": {"masked_ghost": 5e-2, "masked_bk": 2e-2,
+           "masked_fused_stream_ghost": 2e-4},
+    "leaf": {"masked_ghost": 5e-1, "masked_bk": 5e-2,
+             "masked_fused_stream_ghost": 1e-3},
+    "norms": 1e-3, "forced": 1e-4}
+
+
+def set_vlm_gates(session):
+    """Every gate of the session's VLM to VLM_GATE, in place (the session's
+    parameters are the model's own storage)."""
+    import torch
+    with torch.no_grad():
+        session.state.params["supers.crossb.gate.w"].fill_(VLM_GATE)
+
+
+FRONTEND_MODELS = {
+    # full width and full depth: 6 encoder and 6 decoder layers, d 512, 8
+    # heads, d_ff 2,048, vocab 51,865, 1,500 frames of d 512; the decoder
+    # at 448 tokens, the published Whisper's text context.  The physical
+    # batch is the largest of 32, 16 and 8 at which masked_fused fits,
+    # reckoned before the first card call: under vmap(grad) one example
+    # keeps about 6.5 GB (the encoder's f32 scores, 72 MB a copy, about ten
+    # copies a layer over 6 layers, DenseLM's ratio; the decoder's and the
+    # head's 2 GB more), so 8 examples about 52 GB and 16 about 104
+    "whisper-base": dict(
+        params=97_241_088, physical_batch=8, seq_len=448,
+        limits=FRONTEND_LIMITS, fits=FRONTEND_FITS,
+        # at 1,500 frames T^2 = 2.25M exceeds din dout of every encoder
+        # dense (512 x 512, 512 x 2,048) and of the decoder's cross-attention
+        # wk, wv, whose records are the frames: 6 x 6 + 6 x 2 kernel calls
+        # a norm pass; the decoder's other denses (T = 448) and the head
+        # take the Gram path
+        direct_per_pass=48,
+        ghost_shapes={"whisper_attn": (1500, 512, 512),
+                      "whisper_w1": (1500, 512, 2048),
+                      "whisper_w2": (1500, 2048, 512)}),
+    # every width, the vocab, 1,601 image tokens of 1,280 and rope_theta
+    # the config's; depth cut to n_layers 2 with cross_every 2 (the
+    # reference's own reduced() sets cross_every 2): one self-attention
+    # SwiGLU layer and one gated cross-attention layer.  One super block
+    # at the config's cross_every 5 is 6.39G params (25.6 GB a f32 copy);
+    # params, accumulator and one example's grads would be 77 GB.  At
+    # 3,823,149,057 params each f32 copy is 15.3 GB; no momentum (a third
+    # copy), a physical batch of 1.  Reckoned peaks (GB): state 30.6; pe,
+    # fused and the stream add the example's grads (15.3) and a second
+    # flat copy (the fold's sum, the (1, D) matrix, the tile) for 61-66;
+    # ghost and nonprivate a grad tree and about 11 GB of activations for
+    # 57; BK 51: all six fit
+    "llama-3.2-vision-90b": dict(
+        n_layers=2, cross_every=2, params=3_823_149_057, physical_batch=1,
+        seq_len=1024, momentum=0.0,
+        limits=FRONTEND_LIMITS, prepare=set_vlm_gates,
+        fits=tuple((e, 1) for e, _ in FRONTEND_FITS),
+        # at T = 1,024 every dense takes the Gram path (T^2 = 1.05M below
+        # every din dout; the cross attention's wk, wv at 1,601 image tokens
+        # 2.56M below 8,192 x 1,024, proj's 2.56M below 1,280 x 8,192): the
+        # kernel runs in the forced-path check alone
+        direct_per_pass=0, ghost_shapes={}),
+}
+FRONTEND_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, smoke=False)
+
+
+def _leaf_windows(view):
+    """label -> leaf index: the leaf that holds flat element BIG_FLAT_AT
+    (2^31) and the last leaf."""
+    i = next(i for i, (o, n) in enumerate(zip(view.offsets, view.sizes))
+             if o <= BIG_FLAT_AT < o + n)
+    return {f"leaf_at_2^31:{view.names[i]}": i,
+            f"last_leaf:{view.names[-1]}": len(view.names) - 1}
+
+
+def check_big_flat(view, device, B, timer, seed=(0x1234, 0xBEEF)):
+    """The update and both clip kernels over the whole flat buffer of a
+    view above 2^31 elements, each held against its plain version on
+    windows: the leaf that holds element 2^31 and the buffer's tail (the
+    last leaf for the update, which leaves the pad alone; the last
+    BIG_FLAT_TAIL elements for the clip kernels).  The
+    operand and noise-free updates and the clip kernels bitwise; the
+    Threefry update within the normals' bound (1e-6).  Times over the
+    whole buffer beside the bound, the plain version (the update's per
+    leaf) and the library call."""
+    import torch
+    from repro_torch.kernels import clip_accum as ca
+    from repro_torch.kernels import noisy_update as nu
+
+    assert view.total > BIG_FLAT_AT, view.total
+    gen = torch.Generator(device=device).manual_seed(6)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    out = {}
+    # -- noisy_sgd_update: one launch over every leaf
+    leaves = _leaf_windows(view)
+    span = {w: (view.offsets[i], view.offsets[i] + view.sizes[i])
+            for w, i in leaves.items()}
+    params = {nm: rnd(*view.shapes[i]) for i, nm in enumerate(view.names)}
+    acc, mom, z = rnd(view.total), rnd(view.total), rnd(view.total)
+    args = (2.3, 64.0, 1e-3)
+    checks, max_err = {}, 0.0
+    for mu in (0.0, 0.9):
+        sc, inv_l, lr, mu32 = nu.update_scalars(*args, mu)
+        for kind in ("operand", "none", "threefry"):
+            before = {w: (params[view.names[i]].reshape(-1).clone(),
+                          mom[slice(*span[w])].clone())
+                      for w, i in leaves.items()}
+            nu.tree_noisy_update(
+                params, acc, seed if kind != "none" else None, *args,
+                view=view, momentum_buf=mom if mu else None, momentum=mu,
+                noise=z if kind == "operand" else None)
+            for w, i in leaves.items():
+                a, b = span[w]
+                pw, mw = before[w]
+                zz = (z[a:b] if kind == "operand" else
+                      nu.threefry_normal(nu.leaf_seed(seed, i), b - a,
+                                         device)
+                      if kind == "threefry" else None)
+                nu.noisy_sgd_update_plain(pw, acc[a:b], zz, sc, inv_l, lr,
+                                          mw if mu else None, mu32)
+                pk = params[view.names[i]].reshape(-1)
+                err = float((pk - pw).abs().max())
+                bitwise = same_bits(pk, pw)
+                if mu:
+                    err = max(err, float((mom[a:b] - mw).abs().max()))
+                    bitwise = bitwise and same_bits(mom[a:b], mw)
+                key = f"{w}_{kind}_mom{mu}"
+                checks[key] = {"bitwise": bitwise, "max_abs_err": err,
+                               "window": [a, b]}
+                if kind == "threefry":
+                    assert err <= 1e-6, (key, checks[key])
+                else:
+                    assert bitwise, (key, checks[key])
+                max_err = max(max_err, err)
+                del zz, pw, mw
+            del before
+    del z
+    torch.cuda.empty_cache()
+    n_par = view.n_params
+
+    def kernel_step(mu=0.9):
+        nu.tree_noisy_update(params, acc, seed, *args, view=view,
+                             momentum_buf=mom if mu else None, momentum=mu)
+
+    sc, inv_l, lr, mu32 = nu.update_scalars(*args, 0.9)
+
+    def plain_step():
+        for i, nm in enumerate(view.names):
+            o, n = view.offsets[i], view.sizes[i]
+            nu.noisy_sgd_update_plain(
+                params[nm].view(-1), acc[o:o + n],
+                nu.threefry_normal(nu.leaf_seed(seed, i), n, device), sc,
+                inv_l, lr, mom[o:o + n], mu32)
+
+    before = nu.noisy_sgd_update.launches
+    kernel_step()
+    checks["launches_per_step"] = nu.noisy_sgd_update.launches - before
+    assert device.type != "cuda" or checks["launches_per_step"] == 1
+    bms, by = bound_ms(20.0 * n_par, THREEFRY_UPDATE_F32_OPS * n_par,
+                       THREEFRY_I32_OPS * n_par)
+    timing = {"ms": timer(kernel_step, 5), "plain_ms": timer(plain_step, 1,
+                                                             warmup=1),
+              "bound_ms": bms, "bound_by": by, "library_ms": None}
+    # the main path's form here: no momentum (p and acc read, p written)
+    checks["no_momentum_ms"] = timer(lambda: kernel_step(0.0), 5)
+    checks["no_momentum_bound_ms"] = bound_ms(
+        12.0 * n_par, (THREEFRY_UPDATE_F32_OPS - 2) * n_par,
+        THREEFRY_I32_OPS * n_par)[0]
+    out["noisy_sgd_update"] = {"checks": checks, "max_abs_err": max_err,
+                               **timing}
+    log(f"big flat noisy_sgd_update: {json.dumps(out['noisy_sgd_update'])}")
+    del params, acc, mom
+    torch.cuda.empty_cache()
+    # -- the clip kernels, m = B rows of the flat length: the leaf at 2^31
+    # and the buffer's last BIG_FLAT_TAIL elements
+    d = view.total
+    i = next(iter(leaves.values()))
+    spans = {next(iter(leaves)): (view.offsets[i],
+                                  view.offsets[i] + view.sizes[i]),
+             "tail": (d - BIG_FLAT_TAIL, d)}
+    norms = torch.rand(B, generator=gen, device=device) * 9.0
+    mask = torch.ones(B, device=device)
+    acc = rnd(d)
+    checks, max_err, timing = {}, 0.0, None
+    for dt in (torch.float32, torch.bfloat16):
+        g = rnd(B, d).to(dt)
+        before = {w: acc[a:b].clone() for w, (a, b) in spans.items()}
+        ca.clip_accum_inplace(acc, g, norms, mask, 4.63)
+        for w, (a, b) in spans.items():
+            want = ca.clip_accum_inplace_plain(before[w], g[:, a:b], norms,
+                                               mask, 4.63)
+            key = f"{w}_m{B}_{str(dt).split('.')[-1]}"
+            err = float((acc[a:b] - want).abs().max())
+            checks[key] = {"bitwise": same_bits(acc[a:b], want),
+                           "max_abs_err": err, "window": [a, b]}
+            assert checks[key]["bitwise"], (key, checks[key])
+            max_err = max(max_err, err)
+        del before
+        if dt == torch.float32:
+            coef = ca.clip_coefs(norms, mask, 4.63)
+            bms, by = bound_ms((4.0 * B + 8.0) * d, 2.0 * B * d)
+            timing = {
+                "ms": timer(lambda: ca.clip_accum_inplace(
+                    acc, g, norms, mask, 4.63), 5),
+                "plain_ms": timer(lambda: ca.clip_accum_inplace_plain(
+                    acc, g, norms, mask, 4.63), 2),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": None if d > GEMV_MAX_ROWS else timer(
+                    lambda: acc.addmv_(g.T, coef), 5)}
+        del g
+    out["clip_accum_inplace"] = {"checks": checks, "max_abs_err": max_err,
+                                 **timing}
+    log(f"big flat clip_accum_inplace: "
+        f"{json.dumps(out['clip_accum_inplace'])}")
+    del acc
+    torch.cuda.empty_cache()
+    checks, max_err, timing = {}, 0.0, None
+    for dt in (torch.float32, torch.bfloat16):
+        g = rnd(B, d).to(dt)
+        res = ca.clip_accum(g, norms, mask, 4.63)
+        for w, (a, b) in spans.items():
+            want = ca.clip_accum_plain(g[:, a:b], norms, mask, 4.63)
+            key = f"{w}_m{B}_{str(dt).split('.')[-1]}"
+            err = float((res[a:b] - want).abs().max())
+            checks[key] = {"bitwise": same_bits(res[a:b], want),
+                           "max_abs_err": err, "window": [a, b]}
+            assert checks[key]["bitwise"], (key, checks[key])
+            max_err = max(max_err, err)
+        del res
+        if dt == torch.float32:
+            coef = ca.clip_coefs(norms, mask, 4.63)
+            bms, by = bound_ms((4.0 * B + 4.0) * d, 2.0 * B * d)
+            timing = {
+                "ms": timer(lambda: ca.clip_accum(g, norms, mask, 4.63), 5),
+                "plain_ms": timer(lambda: ca.clip_accum_plain(
+                    g, norms, mask, 4.63), 2),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": None if d > GEMV_MAX_ROWS else timer(
+                    lambda: coef @ g, 5)}
+        del g
+    out["clip_accum"] = {"checks": checks, "max_abs_err": max_err, **timing}
+    log(f"big flat clip_accum: {json.dumps(out['clip_accum'])}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_frontend(device, timer):
+    """Phase 9 (see the module docstring): whisper-base, then the VLM cut;
+    every session is collected before the next is built."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    res = {}
+    for arch, spec in FRONTEND_MODELS.items():
+        over = {k: spec[k] for k in ("n_layers", "cross_every") if k in spec}
+        cfg = dataclasses.replace(get_config(arch), **over)
+        train = dict(FRONTEND_TRAIN, seq_len=spec["seq_len"],
+                     **{k: spec[k] for k in ("momentum",) if k in spec})
+        res[arch] = run_lm_model(cfg, spec, train, device, timer)
     res["seconds"] = time.perf_counter() - t0
     return res
 
@@ -2245,16 +2657,21 @@ def main() -> int:
     record["moe"] = moe = run_moe(device, cuda_ms)
     log(f"moe phase: {moe['seconds']:.1f} s")
     phase_end("8")
+    # 9. full-width whisper-base and the VLM cut
+    record["frontend"] = front = run_frontend(device, cuda_ms)
+    log(f"frontend phase: {front['seconds']:.1f} s")
+    phase_end("9")
     # the kernels line: launches summed over every fit() run, ViT's,
-    # DenseLM's, the lifecycle's, the SSM phase's and the MoE phase's (the
+    # DenseLM's, the lifecycle's, the SSM, MoE and frontend phases' (the
     # chaos runs' own processes aside)
     counted = [r["launches"] for r in (*record["fit"].values(),
                                        *record["denselm"]["fit"].values(),
                                        *life["fits"].values())]
     counted += [life["checkpoint"]["launches"],
                 life["protocol"]["launches"]]
-    counted += [r["launches"] for phase, models in ((ssm, SSM_MODELS),
-                                                    (moe, MOE_MODELS))
+    counted += [r["launches"] for phase, models in (
+                    (ssm, SSM_MODELS), (moe, MOE_MODELS),
+                    (front, FRONTEND_MODELS))
                 for arch in models for r in phase[arch]["fit"].values()]
     launches = {k: sum(c[k] for c in counted) for k in kernel_wrappers()}
     _, no_time = life["noise_only"]

@@ -1,10 +1,11 @@
 """ArchConfig: the architecture description the port shares with the
 reference package, as a plain dataclass (no JAX).
 
-The port builds the ViT, the dense decoder LM, Mamba2, the Zamba2 hybrid
-and the MoE family (OLMoE, DeepSeek-V2 with MLA); the fields of the other
-families are kept so a config reads the same on both sides and
-``reduced()`` gives the same smoke variant.
+The port builds every family of the reference: the ViT, the dense decoder
+LM, Mamba2, the Zamba2 hybrid, the MoE family (OLMoE, DeepSeek-V2 with
+MLA), the Whisper encoder-decoder and the cross-attention VLM; a config
+reads the same on both sides and ``reduced()`` gives the same smoke
+variant.
 """
 from __future__ import annotations
 

@@ -14,7 +14,16 @@ tokens, on the card)::
 (``--arch zamba2-1.2b`` likewise.)  The MoE archs (``--arch olmoe-1b-7b``,
 ``--arch deepseek-v2-lite-16b``) hold more f32 state at full depth than one
 card has: run them with ``--smoke`` (``chip_smoke.py`` trains them at full
-width, cut in depth).
+width, cut in depth).  The frontend families read precomputed frontend
+embeddings with their tokens (``EmbeddingDataset``); ``--seq-len`` is the
+decoder's (whisper) or the text's (the VLM) token count::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --seq-len 448 --physical 8 --n-data 64 --steps 1
+
+``--arch llama-3.2-vision-90b`` (87.7B params) fits one card only cut in
+depth: run it with ``--smoke`` (``chip_smoke.py`` trains 2 of its 100
+layers at full width).
 
 ``--smoke`` uses the reduced config; ``--device cpu`` runs on the CPU;
 ``--optimizer adamw`` takes the generic update; ``--ckpt DIR`` makes the
@@ -42,7 +51,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--n-data", type=int, default=512)
     ap.add_argument("--seq-len", type=int, default=16,
-                    help="tokens per example (LM architectures)")
+                    help="tokens per example (the LMs; the decoder's or "
+                         "the text's for the frontend families)")
     ap.add_argument("--physical", type=int, default=32)
     ap.add_argument("--q", type=float, default=0.125)
     ap.add_argument("--sampler", default="poisson",

@@ -21,9 +21,14 @@ op for op, so the rounding points match:
 * ``self_attention`` (the LM's): the reference's training branch of
   ``attention`` — GQA through ``_sdpa`` (the scores in f32, masked to
   -1e30, an f32 softmax, the probabilities cast to ``v``'s dtype), the
-  causal and sliding-window masks, RoPE and the optional qk-norm.  The
-  reference takes blocked flash attention from ``FLASH_MIN_T`` tokens on;
-  the port has none yet and raises there.
+  causal and sliding-window masks (or none, ``causal=False``), RoPE and
+  the optional qk-norm.  The reference takes blocked flash attention from
+  ``FLASH_MIN_T`` tokens on (causal only); the port has none yet and
+  raises there.
+* ``cross_attention``: the reference's ``attention(..., kv_x=)`` — the
+  queries from the stream, the keys and values projected from a second
+  stream of S rows (the encoder's frames, the projected image tokens),
+  every key visible, through the same ``_sdpa``.
 * ``swiglu``: ``silu(g)`` in f32, cast, then ``* u`` in the activation
   dtype.
 * ``lm_head_ce``: the head and the per-example mean CE (log-softmax in f32),
@@ -33,7 +38,8 @@ op for op, so the rounding points match:
 A layer's parameters ``p`` are the port's path-keyed leaves below the
 layer's own path (``{"wq.w": ..., "wq.b": ...}`` for ``blocks.attn``).
 :class:`TokenLM` is the surface the token LMs (dense, SSM, hybrid, MoE)
-share.
+share; :class:`FrontendLM` the frontend families' (Whisper, the VLM),
+whose batches carry ``frontend`` embeddings besides the tokens.
 """
 from __future__ import annotations
 
@@ -251,12 +257,8 @@ def self_attention(tape: Tape, scope: str, path: str, p: dict,
             f"blocked flash attention in the reference, which the port has "
             f"not ported yet (ROADMAP queue 1, item 2)")
 
-    def proj(nm):
-        return L.dense(tape, f"{scope}.{nm}", x, p[f"{nm}.w"],
-                       p.get(f"{nm}.b"), param_path=f"{path}.{nm}").reshape(
-            B, T, -1, Dh)
-
-    q, k, v = proj("wq"), proj("wk"), proj("wv")
+    q, k, v = (_project(tape, scope, path, p, nm, x, Dh)
+               for nm in ("wq", "wk", "wv"))
     q, k = _qk_normalize(tape, scope, path, p, q, k, a)
     if a.use_rope and positions is not None:
         q = apply_rope(q, positions, a.rope_theta)
@@ -269,6 +271,34 @@ def self_attention(tape: Tape, scope: str, path: str, p: dict,
             mask = mask & (si > ti - a.window)
     else:
         mask = torch.ones(T, T, dtype=torch.bool, device=x.device)
+    o = _sdpa(q.reshape(B, T, Hkv, H // Hkv, Dh), k, v, mask)
+    return L.dense(tape, f"{scope}.wo", o.reshape(B, T, H * Dh), p["wo.w"],
+                   param_path=f"{path}.wo")
+
+
+def _project(tape: Tape, scope: str, path: str, p: dict, nm: str,
+             src: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The ``nm`` projection (and its bias, where ``p`` has one) of
+    ``src`` (B, S, d), split into heads: (B, S, heads, head_dim)."""
+    return L.dense(tape, f"{scope}.{nm}", src, p[f"{nm}.w"],
+                   p.get(f"{nm}.b"), param_path=f"{path}.{nm}").reshape(
+        src.shape[0], src.shape[1], -1, head_dim)
+
+
+def cross_attention(tape: Tape, scope: str, path: str, p: dict,
+                    x: torch.Tensor, kv_x: torch.Tensor,
+                    a: AttnCfg) -> torch.Tensor:
+    """Cross attention (training): the queries from ``x`` (B, T, d), the
+    keys and values projected from the second stream ``kv_x`` (B, S, d)
+    with ``S`` free of T, every key visible (an all-ones (T, S) mask; no
+    qk-norm, no RoPE), as the reference's ``attention(..., kv_x=)``.  ``p``
+    holds ``w{q,k,v}.w`` (and ``.b`` with ``a.qkv_bias``) and ``wo.w``."""
+    B, T, _ = x.shape
+    H, Hkv, Dh = a.n_heads, a.n_kv_heads, a.head_dim
+    q = _project(tape, scope, path, p, "wq", x, Dh)
+    k = _project(tape, scope, path, p, "wk", kv_x, Dh)
+    v = _project(tape, scope, path, p, "wv", kv_x, Dh)
+    mask = torch.ones(T, kv_x.shape[1], dtype=torch.bool, device=x.device)
     o = _sdpa(q.reshape(B, T, Hkv, H // Hkv, Dh), k, v, mask)
     return L.dense(tape, f"{scope}.wo", o.reshape(B, T, H * Dh), p["wo.w"],
                    param_path=f"{path}.wo")
@@ -394,3 +424,52 @@ class TokenLM(nn.Module):
         plain one (the record-mode engines pass theirs)."""
         return torch.func.functional_call(
             self, params, (batch["tokens"], batch["labels"]), {"tape": tape})
+
+
+# ---------------------------------------------------------------------------
+# the frontend families' shared surface
+# ---------------------------------------------------------------------------
+
+class FrontendLM(nn.Module):
+    """The surface Whisper and the VLM share: the parameters as ``{path:
+    tensor}``, the logits and the per-example loss of a batch whose
+    ``frontend`` (B, frames, dim) f32 embeddings (the stubbed audio or
+    vision encoder's output) come with its ``tokens`` and ``labels``.  A
+    family builds its leaves (``head`` among them) in ``__init__`` and runs
+    ``backbone(tokens, frontend, tape)`` to the final-normed (B, T, d)
+    hidden states.  Call the model functionally (:meth:`loss` uses
+    ``torch.func.functional_call``): under ``vmap(grad)`` the frontend is
+    mapped with the tokens, one example's frames at a time."""
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters as the port's ``{path: tensor}`` dict in
+        flatten order (detached views sharing the module's storage)."""
+        return path_params(self)
+
+    def backbone(self, tokens: torch.Tensor, frontend: torch.Tensor,
+                 tape: Tape) -> torch.Tensor:
+        raise NotImplementedError
+
+    def logits(self, tokens: torch.Tensor, frontend: torch.Tensor,
+               tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B, T) token ids and the frontend -> (B, T, vocab) logits."""
+        tape = Tape() if tape is None else tape
+        return L.dense(tape, "head", self.backbone(tokens, frontend, tape),
+                       self.head.w, param_path="head")
+
+    def forward(self, tokens: torch.Tensor, frontend: torch.Tensor,
+                labels: torch.Tensor,
+                tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B,) per-example mean next-token CE (the head chunked over T
+        with ``cfg.ce_chunk``); ``tape`` defaults to a plain one."""
+        tape = Tape() if tape is None else tape
+        x = self.backbone(tokens, frontend, tape)
+        return lm_head_ce(tape, self.head.w, x, labels, self.cfg)
+
+    def loss(self, params: Dict[str, torch.Tensor], batch: dict,
+             tape: Optional[Tape] = None) -> torch.Tensor:
+        """(B,) per-example losses under ``params``; ``tape`` defaults to a
+        plain one (the record-mode engines pass theirs)."""
+        return torch.func.functional_call(
+            self, params, (batch["tokens"], batch["frontend"],
+                           batch["labels"]), {"tape": tape})

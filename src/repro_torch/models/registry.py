@@ -1,10 +1,10 @@
 """Architecture registry: name -> ArchConfig, family -> model class.
 
-The port builds the ``vit``, ``dense``, ``ssm`` (Mamba2), ``hybrid``
-(Zamba2) and ``moe`` families (``DeepseekV2LM`` when the config has an MLA
-latent, ``kv_lora``, else ``MoeLM``, as the reference's ``_family_cls``
-chooses); ``vlm`` and ``audio`` raise until ROADMAP queue 1, item 5 ports
-them.
+The port builds every family of the reference: ``vit``, ``dense``,
+``ssm`` (Mamba2), ``hybrid`` (Zamba2), ``moe`` (``DeepseekV2LM`` when the
+config has an MLA latent, ``kv_lora``, else ``MoeLM``, as the reference's
+``_family_cls`` chooses), ``audio`` (``WhisperLM``) and ``vlm``
+(``VisionLM``); an unknown family raises.
 """
 from __future__ import annotations
 
@@ -14,11 +14,13 @@ from .mla import DeepseekV2LM
 from .moe import MoeLM
 from .transformer import DenseLM
 from .vit import ViT
+from .vlm import VisionLM
+from .whisper import WhisperLM
 from .zamba2 import Zamba2LM
 
 __all__ = ["ARCH_IDS", "build", "get_config"]
 
-# the reference's architectures; get_config finds the ported ones
+# the reference's architectures; get_config finds each
 ARCH_IDS = [
     "olmoe-1b-7b", "llama-3.2-vision-90b", "deepseek-67b",
     "deepseek-v2-lite-16b", "qwen2-0.5b", "zamba2-1.2b", "qwen3-1.7b",
@@ -34,7 +36,8 @@ def _moe(cfg: ArchConfig, *, device, seed: int):
 
 
 _FAMILIES = {"vit": ViT, "dense": DenseLM, "ssm": Mamba2LM,
-             "hybrid": Zamba2LM, "moe": _moe}
+             "hybrid": Zamba2LM, "moe": _moe, "audio": WhisperLM,
+             "vlm": VisionLM}
 
 
 def build(cfg: ArchConfig, *, device, seed: int = 0):
@@ -42,8 +45,6 @@ def build(cfg: ArchConfig, *, device, seed: int = 0):
     ``seed``."""
     cls = _FAMILIES.get(cfg.family)
     if cls is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item "
-            f"5: the vlm and audio families with EmbeddingDataset); the port "
-            f"builds {sorted(_FAMILIES)}")
+        raise ValueError(f"unknown model family {cfg.family!r}; the port "
+                         f"builds {sorted(_FAMILIES)}")
     return cls(cfg, device=device, seed=seed)

@@ -31,8 +31,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.qwen3_1_7b import SLIDING
 from repro_torch.core import DPConfig
 from repro_torch.core.session import PrivacySession, TrainConfig
-from repro_torch.data import TokenDataset, dataset_for_config
-from repro_torch.models import ARCH_IDS, DenseLM, build
+from repro_torch.data import (EmbeddingDataset, TokenDataset,
+                              dataset_for_config)
+from repro_torch.models import (ARCH_IDS, DenseLM, VisionLM, WhisperLM,
+                                build)
 from repro_torch.utils.params import (FlatGradView, flatten_tree,
                                       params_from_numpy)
 
@@ -54,15 +56,25 @@ def test_configs_match_reference(name):
 
 
 def test_registry():
+    """Every architecture of the reference has its config and builds; the
+    frontend families' data is an ``EmbeddingDataset``; an unknown family
+    raises in both."""
     assert ARCH_IDS == ref_registry.ARCH_IDS
     assert isinstance(build(get_config("qwen2-0.5b").reduced(),
                             device="cpu"), DenseLM)
-    vlm = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        build(vlm, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        dataset_for_config(vlm, 4, 8)
+    for arch, cls in (("llama-3.2-vision-90b", VisionLM),
+                      ("whisper-base", WhisperLM)):
+        cfg = get_config(arch).reduced()
+        assert isinstance(build(cfg, device="cpu"), cls)
+        assert isinstance(dataset_for_config(cfg, 4, 8), EmbeddingDataset)
+    assert {get_config(a).family for a in ARCH_IDS} == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio", "vit"}
+    odd = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                              family="speech")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build(odd, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        dataset_for_config(odd, 4, 8)
 
 
 def test_token_dataset_matches_reference():

@@ -54,8 +54,10 @@ from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core import layers as L
 from repro_torch.core.clipping import per_example_grads_and_sq
 from repro_torch.core.tape import LayerSpec, Tape, scan_blocks
-from repro_torch.data import TokenDataset, dataset_for_config
-from repro_torch.models import DeepseekV2LM, MoeLM, build
+from repro_torch.data import (EmbeddingDataset, TokenDataset,
+                              dataset_for_config)
+from repro_torch.models import (DeepseekV2LM, MoeLM, VisionLM, WhisperLM,
+                                build)
 from repro_torch.models import common as cm
 from repro_torch.models import mla, moe
 from repro_torch.utils.params import (FlatGradView, flatten_tree,
@@ -133,10 +135,18 @@ def test_registry_builds_the_family(name, cls):
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_registry_raises_for_the_families_left(family):
-    cfg = ArchConfig(name="x", family=family, n_layers=1, d_model=8,
-                     n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="vlm and audio"):
-        build(cfg, device="cpu")
+    """The last two families build (no family is left to raise for), their
+    data is an ``EmbeddingDataset``, and an unknown family still raises."""
+    arch = {"vlm": "llama-3.2-vision-90b", "audio": "whisper-base"}[family]
+    cls = {"vlm": VisionLM, "audio": WhisperLM}[family]
+    cfg = get_config(arch).reduced()
+    assert cfg.family == family
+    assert type(build(cfg, device="cpu")) is cls
+    assert isinstance(dataset_for_config(cfg, 4, 8), EmbeddingDataset)
+    other = ArchConfig(name="x", family=family + "-x", n_layers=1,
+                       d_model=8, n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(ValueError, match="unknown model family"):
+        build(other, device="cpu")
 
 
 def test_token_dataset_matches_reference():
