@@ -77,11 +77,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
                each resumed bitwise from a snapshot; and the paper-protocol
                twin's four engines at full width;
-7. ssm      — full-width mamba2-1.3b at 16 of its 48 layers
-               (619,467,776 params) and zamba2-1.2b at 32 of 38 (5 supers
-               and the 2-layer tail; 1,016,819,712) at 1,024 tokens, after
-               the lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
-               and zamba2's shared-block shapes (T_eff = 5,120), the
+7. ssm      — full-width mamba2-1.3b (1,446,505,472 params) and
+               zamba2-1.2b (1,170,313,344) at 1,024 tokens, after the
+               lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
+               and zamba2's shared-block shapes (T_eff = 6,144), the
                one-launch update and the clip kernels at each model's flat
                length (a physical batch of 1); ``fit()`` per engine (mamba2:
                ``masked_pe``, ``masked_ghost``, ``masked_bk``,
@@ -178,6 +177,18 @@ F32_OPS_PER_S = 67e12
 I32_OPS_PER_S = 16.7e12
 
 NORMAL_ULP_BOUND = 2          # in-kernel normals against the plain version
+# past this flat length (the first element past int32 indexing) the
+# update's and the clip kernels' checks still run each kernel over the
+# whole buffer, but hold it against its plain version on windows
+# (held_windows), one of which straddles it: whole-buffer copies (15.3 GB
+# each at the VLM's 3.82G) would not fit beside the operands.  The clip
+# kernels are also held on the buffer's last BIG_FLAT_TAIL elements (the
+# alignment pad and the last leaf's end)
+BIG_FLAT_AT = 2 ** 31
+BIG_FLAT_TAIL = 1 << 24
+# cuBLAS's gemv takes at most 2^31 - 1 rows (addmv_ and coef @ g raise
+# past it): the clip kernels' yardstick changes form there (clip_library_fn)
+GEMV_MAX_ROWS = 2 ** 31 - 1
 # masked_fused_stream at a tile below the batch against masked_pe at the
 # whole batch, as a share of max |acc|: a row's per-example gradient bits
 # depend on the vmap width, and the bf16 activations turn a last-bit f32
@@ -444,7 +455,8 @@ def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
     """The main path's call, one launch per step with in-kernel Threefry
     noise and momentum over every leaf of ``view``, timed beside its bound
     and the per-leaf plain update; its launches and device kernels per
-    step, its host work, and the noise-free step's time."""
+    step, its host work, and the times of the step without momentum and
+    without noise."""
     import torch
     from repro_torch.kernels import noisy_update as nu
 
@@ -455,11 +467,11 @@ def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
     acc = torch.randn(view.total, generator=gen, device=device)
     mom = torch.zeros(view.total, device=device)
 
-    def kernel_step(seeds=seed):
+    def kernel_step(seeds=seed, mu=0.9):
         nu.tree_noisy_update(params, acc, seeds, 2.3, 64.0, 1e-3, view=view,
-                             momentum_buf=mom, momentum=0.9)
+                             momentum_buf=mom if mu else None, momentum=mu)
 
-    sc, inv_l, lr, mu = nu.update_scalars(2.3, 64.0, 1e-3, 0.9)
+    sc, inv_l, lr, mu32 = nu.update_scalars(2.3, 64.0, 1e-3, 0.9)
 
     def plain_step():
         for i, nm in enumerate(view.names):
@@ -467,7 +479,7 @@ def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
             nu.noisy_sgd_update_plain(
                 params[nm].view(-1), acc[o:o + n],
                 nu.threefry_normal(nu.leaf_seed(seed, i), n, device), sc,
-                inv_l, lr, mom[o:o + n], mu)
+                inv_l, lr, mom[o:o + n], mu32)
 
     n_par = view.n_params
     bms, by = bound_ms(20.0 * n_par, THREEFRY_UPDATE_F32_OPS * n_par,
@@ -480,9 +492,19 @@ def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
         checks["device_kernels_per_step"] = device_kernels(kernel_step)
         assert checks["device_kernels_per_step"] is None or len(
             checks["device_kernels_per_step"]) == 1, checks
-    timing = {"ms": timer(kernel_step, 20), "plain_ms": timer(plain_step, 3),
+    # the plain step takes seconds past BIG_FLAT_AT: one warm-up, one call
+    big = view.total > BIG_FLAT_AT
+    timing = {"ms": timer(kernel_step, 20),
+              "plain_ms": timer(plain_step, 1 if big else 3,
+                                warmup=1 if big else 2),
               "bound_ms": bms, "bound_by": by, "library_ms": None}
     checks["host_us_per_step"] = host_us(kernel_step, 20)
+    # the step without momentum (p and acc read, p written: the form of
+    # the sessions without momentum)
+    checks["no_momentum_ms"] = timer(lambda: kernel_step(mu=0.0), 20)
+    checks["no_momentum_bound_ms"] = bound_ms(
+        12.0 * n_par, (THREEFRY_UPDATE_F32_OPS - 2) * n_par,
+        THREEFRY_I32_OPS * n_par)[0]
     # the same step without noise: p, acc and m read, p and m written, the
     # same 20 B/param as the Threefry step: what the in-kernel Threefry and
     # Box-Muller cost on top of the memory traffic
@@ -491,97 +513,142 @@ def time_tree_update(view, device, timer, seed=(0x1234, 0xBEEF)):
     return timing, checks
 
 
-def check_tree_noisy_update(view, device, seed):
-    """The one-launch tree_noisy_update against the per-leaf plain update
-    on every leaf of ``view``: each noise kind, with and without momentum;
-    bitwise for the operand and noise-free forms, the Threefry form within
-    the normals' bound (params and momentum to 1e-6)."""
+def check_tree_noisy_update(view, device, seed, leaves=None):
+    """The one-launch tree_noisy_update over every leaf of ``view`` against
+    the per-leaf plain update on ``leaves`` (leaf indices; every leaf by
+    default): each noise kind, with and without momentum; bitwise for the
+    operand and noise-free forms, the Threefry form within the normals'
+    bound (params and momentum to 1e-6).  The kernel updates one set of
+    buffers in place, kind after kind; the plain update starts from copies
+    of the held leaves taken just before each call."""
     import torch
     from repro_torch.kernels import noisy_update as nu
 
     gen = torch.Generator(device=device).manual_seed(5)
-    p0 = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
-          for i, nm in enumerate(view.names)}
+    params = {nm: torch.randn(view.shapes[i], generator=gen, device=device)
+              for i, nm in enumerate(view.names)}
     acc = torch.randn(view.total, generator=gen, device=device)
     z = torch.randn(view.total, generator=gen, device=device)
-    m0 = torch.randn(view.total, generator=gen, device=device)
+    mom = torch.randn(view.total, generator=gen, device=device)
+    leaves = range(len(view.names)) if leaves is None else leaves
+    spans = {i: (view.offsets[i], view.offsets[i] + view.sizes[i])
+             for i in leaves}
     args = (2.3, 64.0, 1e-3)
-    res, max_err = {}, 0.0
-    for mom in (0.0, 0.9):
-        sc, inv_l, lr, mu = nu.update_scalars(*args, mom)
+    res = {"held_leaves": [view.names[i] for i in leaves]}
+    max_err = 0.0
+    for mu in (0.0, 0.9):
+        sc, inv_l, lr, mu32 = nu.update_scalars(*args, mu)
         for kind in ("operand", "none", "threefry"):
-            pk = {nm: t.clone() for nm, t in p0.items()}
-            pp = {nm: t.clone() for nm, t in p0.items()}
-            mk = m0.clone() if mom else None
-            mp = m0.clone() if mom else None
+            held = {i: (params[view.names[i]].reshape(-1).clone(),
+                        mom[a:b].clone() if mu else None)
+                    for i, (a, b) in spans.items()}
             nu.tree_noisy_update(
-                pk, acc, seed if kind != "none" else None, *args, view=view,
-                momentum_buf=mk, momentum=mom,
+                params, acc, seed if kind != "none" else None, *args,
+                view=view, momentum_buf=mom if mu else None, momentum=mu,
                 noise=z if kind == "operand" else None)
-            for i, nm in enumerate(view.names):
-                o, n = view.offsets[i], view.sizes[i]
-                zz = (z[o:o + n] if kind == "operand" else
-                      nu.threefry_normal(nu.leaf_seed(seed, i), n, device)
+            err, bitwise = 0.0, True
+            for i, (a, b) in spans.items():
+                pp, mp = held.pop(i)
+                zz = (z[a:b] if kind == "operand" else
+                      nu.threefry_normal(nu.leaf_seed(seed, i), b - a,
+                                         device)
                       if kind == "threefry" else None)
-                nu.noisy_sgd_update_plain(pp[nm].view(-1), acc[o:o + n], zz,
-                                          sc, inv_l, lr,
-                                          mp[o:o + n] if mom else None, mu)
-            fk, fp = view.flatten(pk), view.flatten(pp)
-            err = float((fk - fp).abs().max())
-            bitwise = same_bits(fk, fp)
-            if mom:
-                err = max(err, float((mk - mp).abs().max()))
-                bitwise = bitwise and same_bits(mk, mp)
-            key = f"{kind}_mom{mom}"
+                nu.noisy_sgd_update_plain(pp, acc[a:b], zz, sc, inv_l, lr,
+                                          mp, mu32)
+                pk = params[view.names[i]].reshape(-1)
+                err = max(err, float((pk - pp).abs().max()))
+                bitwise = bitwise and same_bits(pk, pp)
+                if mu:
+                    err = max(err, float((mom[a:b] - mp).abs().max()))
+                    bitwise = bitwise and same_bits(mom[a:b], mp)
+                del pp, mp, zz
+            key = f"{kind}_mom{mu}"
             res[key] = {"bitwise": bitwise, "max_abs_err": err}
             if kind != "threefry":
                 assert bitwise, f"tree {key}: not bitwise {err}"
             else:
                 assert err <= 1e-6, f"tree {key}: {err}"
             max_err = max(max_err, err)
-            del pk, pp, mk, mp, fk, fp
     return res, max_err
 
 
-def check_clip_accum(view, device, tile, timer):
-    """clip_accum_inplace at the full flat length, m in {1, tile}."""
+def clip_library_fn(g, coef, acc=None):
+    """The clip kernels' yardstick, as a function of no arguments: one
+    PyTorch call computing the same function on the same inputs (another
+    summation order), ``coef @ g``, or ``acc.addmv_(g.T, coef)`` for the
+    in-place form.  cuBLAS's gemv raises past GEMV_MAX_ROWS columns; past
+    them a single row takes the elementwise ``g[0] * coef`` or
+    ``acc.addcmul_(g[0], coef)``, which move the bytes the bound counts,
+    and more rows take none (None; no model here reaches that: the one
+    buffer past 2^31 runs a physical batch of 1)."""
+    m, d = g.shape
+    if d <= GEMV_MAX_ROWS:
+        return ((lambda: coef @ g) if acc is None
+                else (lambda: acc.addmv_(g.T, coef)))
+    if m == 1:
+        return ((lambda: g[0] * coef) if acc is None
+                else (lambda: acc.addcmul_(g[0], coef)))
+    return None
+
+
+def clip_inputs(gen, m, device):
+    """norms and mask of m examples for the clip kernels' checks: about a
+    quarter masked out (never row 0), a zero norm in row 0 where there
+    are several rows, and a lone row clipped to half."""
+    import torch
+    norms = torch.rand(m, generator=gen, device=device) * 9.0
+    norms[0] = 0.0 if m > 1 else 9.26
+    mask = (torch.rand(m, generator=gen, device=device) > 0.25).float()
+    mask[0] = 1.0
+    return norms, mask
+
+
+def check_clip_accum(view, device, tile, timer, spans=None):
+    """clip_accum_inplace at the full flat length, m in {1, tile}, f32 and
+    bf16 grads, bitwise against its plain version on ``spans`` ((start,
+    end) of the flat buffer; all of it by default): the kernel folds into
+    the accumulator in place, the plain version into copies of the spans
+    taken just before."""
     import torch
     from repro_torch.kernels import clip_accum as ca
 
     gen = torch.Generator(device=device).manual_seed(2)
     d = view.total
-    checks = {}
+    spans = [(0, d)] if spans is None else spans
+    checks = {"windows": spans}
     max_err = 0.0
     timing = None
     for m in sorted({1, tile}):
-        norms = torch.rand(m, generator=gen, device=device) * 9.0
-        norms[0] = 0.0
-        mask = (torch.rand(m, generator=gen, device=device) > 0.25).float()
-        mask[0] = 1.0
-        acc0 = torch.randn(d, generator=gen, device=device)
+        norms, mask = clip_inputs(gen, m, device)
+        acc = torch.randn(d, generator=gen, device=device)
         for dt in (torch.float32, torch.bfloat16):
             g = torch.randn(m, d, generator=gen, device=device).to(dt)
-            ak, ap = acc0.clone(), acc0.clone()
-            ca.clip_accum_inplace(ak, g, norms, mask, 4.63)
-            ca.clip_accum_inplace_plain(ap, g, norms, mask, 4.63)
-            err = float((ak - ap).abs().max())
+            held = [acc[a:b].clone() for a, b in spans]
+            ca.clip_accum_inplace(acc, g, norms, mask, 4.63)
+            err, bitwise = 0.0, True
+            for (a, b), want in zip(spans, held):
+                ca.clip_accum_inplace_plain(want, g[:, a:b], norms, mask,
+                                            4.63)
+                err = max(err, float((acc[a:b] - want).abs().max()))
+                bitwise = bitwise and same_bits(acc[a:b], want)
+            del held
             key = f"m{m}_{str(dt).split('.')[-1]}"
-            checks[key] = {"bitwise": same_bits(ak, ap), "max_abs_err": err}
-            assert checks[key]["bitwise"], f"clip_accum_inplace {key}: {err}"
+            checks[key] = {"bitwise": bitwise, "max_abs_err": err}
+            assert bitwise, f"clip_accum_inplace {key}: {err}"
             max_err = max(max_err, err)
             if m == tile and dt == torch.float32:
                 coef = ca.clip_coefs(norms, mask, 4.63)
+                library = clip_library_fn(g, coef, acc)  # or None
                 bms, by = bound_ms((4.0 * m + 8.0) * d, 2.0 * m * d)
                 timing = {
                     "ms": timer(lambda: ca.clip_accum_inplace(
-                        ak, g, norms, mask, 4.63), 10),
+                        acc, g, norms, mask, 4.63), 10),
                     "plain_ms": timer(lambda: ca.clip_accum_inplace_plain(
-                        ap, g, norms, mask, 4.63), 3),
+                        acc, g, norms, mask, 4.63), 3),
                     "bound_ms": bms, "bound_by": by,
-                    # one PyTorch call computing the same function on the
-                    # same inputs (another summation order): the yardstick
-                    "library_ms": timer(lambda: ap.addmv_(g.T, coef), 10)}
-            del g, ak, ap
+                    "library_ms": library and timer(library, 10)}
+            del g
+        del acc
     return checks, max_err, timing
 
 
@@ -725,41 +792,44 @@ def check_ghost_norm(device, timer, shapes=None):
     return res, max_err
 
 
-def check_clip_accum_resident(view, device, batch, timer):
+def check_clip_accum_resident(view, device, batch, timer, spans=None):
     """The resident clip_accum at (batch, flat length), f32 and bf16,
-    bitwise against its plain version; timed in f32 (the per-example grads'
-    dtype on the main path)."""
+    bitwise against its plain version on ``spans`` ((start, end) of the
+    flat buffer; all of it by default); timed in f32 (the per-example
+    grads' dtype on the main path)."""
     import torch
     from repro_torch.kernels import clip_accum as ca
 
     gen = torch.Generator(device=device).manual_seed(4)
     d, m = view.total, batch
-    norms = torch.rand(m, generator=gen, device=device) * 9.0
-    norms[0] = 0.0
-    mask = (torch.rand(m, generator=gen, device=device) > 0.25).float()
-    mask[0] = 1.0
-    checks, max_err, timing = {}, 0.0, None
+    spans = [(0, d)] if spans is None else spans
+    norms, mask = clip_inputs(gen, m, device)
+    checks, max_err, timing = {"windows": spans}, 0.0, None
     for dt in (torch.float32, torch.bfloat16):
         g = torch.randn(m, d, generator=gen, device=device).to(dt)
         k = ca.clip_accum(g, norms, mask, 4.63)
-        p = ca.clip_accum_plain(g, norms, mask, 4.63)
-        err = float((k - p).abs().max())
+        err, bitwise = 0.0, True
+        for a, b in spans:
+            p = ca.clip_accum_plain(g[:, a:b], norms, mask, 4.63)
+            err = max(err, float((k[a:b] - p).abs().max()))
+            bitwise = bitwise and same_bits(k[a:b], p)
+            del p
+        del k
         key = f"m{m}_{str(dt).split('.')[-1]}"
-        checks[key] = {"bitwise": same_bits(k, p), "max_abs_err": err}
-        assert checks[key]["bitwise"], f"clip_accum {key}: {err}"
+        checks[key] = {"bitwise": bitwise, "max_abs_err": err}
+        assert bitwise, f"clip_accum {key}: {err}"
         max_err = max(max_err, err)
         if dt == torch.float32:
             coef = ca.clip_coefs(norms, mask, 4.63)
+            library = clip_library_fn(g, coef)  # or None
             bms, by = bound_ms((4.0 * m + 4.0) * d, 2.0 * m * d)
             timing = {
                 "ms": timer(lambda: ca.clip_accum(g, norms, mask, 4.63), 10),
                 "plain_ms": timer(lambda: ca.clip_accum_plain(
                     g, norms, mask, 4.63), 3),
                 "bound_ms": bms, "bound_by": by,
-                # one PyTorch call computing the same function on the same
-                # inputs (another summation order): the yardstick
-                "library_ms": timer(lambda: coef @ g, 10)}
-        del g, k, p
+                "library_ms": library and timer(library, 10)}
+        del g
     return checks, max_err, timing
 
 
@@ -1820,16 +1890,11 @@ def run_lifecycle(device, timer, view):
 # full-width mamba2-1.3b and zamba2-1.2b (the reference's configs: every
 # width, the state, the heads, the chunk, zamba2's attn_every of 6), bf16
 # activations, f32 params, random weights from the seed, at 1,024 tokens (a
-# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  Depth
-# is cut for the script's time, as phase 9 needs it: mamba2 16 of its 48
-# layers; zamba2 32 of 38, 5 supers of 6 and the 2-layer tail, so that its
-# shared block still folds 5 uses into T_eff = 5,120 (T_eff^2 = 26.2M above
-# the 2,048 x 8,192 of its widest dense: the direct path, as at full depth;
-# 4 supers would give 16.8M, the boundary).  The physical batch is the
-# largest of 4, 2 and 1 at which masked_fused fits: 1 for both (at 2 it ran
-# out of the card's memory on both at full depth; at 1 it peaked at 66.5 GB
-# allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on zamba2; H100 80GB
-# HBM3, 700 W)
+# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  The
+# physical batch is the largest of 4, 2 and 1 at which masked_fused fits:
+# 1 for both (at 2 it ran out of the card's memory on both; at 1 it peaks
+# at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on
+# zamba2; H100 80GB HBM3, 700 W)
 SSM_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
                  smoke=False)
 # the record engines against masked_pe on one physical batch, per model,
@@ -1862,8 +1927,7 @@ MAMBA2_LIMITS = {
     "norms": 1e-3, "forced": 1e-4}
 SSM_MODELS = {
     "mamba2-1.3b": dict(
-        n_layers=16, params=619_467_776, physical_batch=1,
-        limits=MAMBA2_LIMITS,
+        params=1_446_505_472, physical_batch=1, limits=MAMBA2_LIMITS,
         # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
         # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
         # and 2,896): the kernel runs in the forced-path check alone
@@ -1874,19 +1938,18 @@ SSM_MODELS = {
         ghost_shapes={"mamba2_in_proj": (1024, 2048, 8512),
                       "mamba2_out_proj": (1024, 4096, 2048)}),
     "zamba2-1.2b": dict(
-        n_layers=32, params=1_016_819_712, physical_batch=1,
-        limits=DENSELM_LIMITS,
-        # the shared block's records fold its 5 uses into T_eff = 5,120
-        # (T_eff^2 = 26.2M above every din dout): wq, wk, wv, wo (2,048 x
+        params=1_170_313_344, physical_batch=1, limits=DENSELM_LIMITS,
+        # the shared block's records fold its 6 uses into T_eff = 6,144
+        # (T_eff^2 = 37.7M above every din dout): wq, wk, wv, wo (2,048 x
         # 2,048), w1, w3 (2,048 x 8,192) and w2 (8,192 x 2,048) take the
         # kernel, once each per norm pass; the mamba denses and the head
         # take the Gram path
         direct_per_pass=7,
         fits=(("masked_ghost", 2), ("masked_bk", 2),
               ("masked_fused_stream", 2), ("nonprivate", 1)),
-        ghost_shapes={"zamba2_attn": (5120, 2048, 2048),
-                      "zamba2_w1_w3": (5120, 2048, 8192),
-                      "zamba2_w2": (5120, 8192, 2048)}),
+        ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
+                      "zamba2_w1_w3": (6144, 2048, 8192),
+                      "zamba2_w2": (6144, 8192, 2048)}),
 }
 # SSD on one layer's real activations (f32): the chunked scan against a
 # per-token ssd_step loop and against chunk 16, at the reference's bounds
@@ -2000,29 +2063,25 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
     log(f"{arch} ghost_norm_dense: {json.dumps(gn_checks)}")
     mark("ghost_norm_dense")
     torch.cuda.empty_cache()
-    if view.total > BIG_FLAT_AT:
-        # several whole-buffer temporaries would not fit: the kernels run
-        # over the whole buffer and are held on windows of it
-        kernel_checks.update(check_big_flat(view, device, B, timer))
-    else:
-        tree, tree_err = check_tree_noisy_update(view, device,
-                                                 (0x1234, 0xBEEF))
-        kernel_checks["noisy_sgd_update"] = {"checks": {"tree": tree},
-                                             "max_abs_err": tree_err}
-        torch.cuda.empty_cache()
-        nu_time, nu_checks = time_tree_update(view, device, timer)
-        kernel_checks["noisy_sgd_update"]["checks"].update(nu_checks)
-        kernel_checks["noisy_sgd_update"].update(nu_time)
-        torch.cuda.empty_cache()
-        ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer)
-        kernel_checks["clip_accum_inplace"] = {"checks": ca_checks,
-                                               "max_abs_err": ca_err,
-                                               **ca_time}
-        torch.cuda.empty_cache()
-        cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device,
-                                                               B, timer)
-        kernel_checks["clip_accum"] = {"checks": cr_checks,
-                                       "max_abs_err": cr_err, **cr_time}
+    leaves, spans = held_windows(view)
+    tree, tree_err = check_tree_noisy_update(view, device, (0x1234, 0xBEEF),
+                                             leaves)
+    kernel_checks["noisy_sgd_update"] = {"checks": {"tree": tree},
+                                         "max_abs_err": tree_err}
+    torch.cuda.empty_cache()
+    nu_time, nu_checks = time_tree_update(view, device, timer)
+    kernel_checks["noisy_sgd_update"]["checks"].update(nu_checks)
+    kernel_checks["noisy_sgd_update"].update(nu_time)
+    torch.cuda.empty_cache()
+    ca_checks, ca_err, ca_time = check_clip_accum(view, device, B, timer,
+                                                  spans)
+    kernel_checks["clip_accum_inplace"] = {"checks": ca_checks,
+                                           "max_abs_err": ca_err, **ca_time}
+    torch.cuda.empty_cache()
+    cr_checks, cr_err, cr_time = check_clip_accum_resident(view, device, B,
+                                                           timer, spans)
+    kernel_checks["clip_accum"] = {"checks": cr_checks, "max_abs_err": cr_err,
+                                   **cr_time}
     torch.cuda.empty_cache()
     log(f"{arch} update and clip_accum: " + json.dumps(
         {k: v for k, v in kernel_checks.items() if k != "ghost_norm_dense"}))
@@ -2080,21 +2139,16 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
 
 
 def run_ssm_model(arch, device, timer):
-    """One model of phase 7 at its cut depth, with the SSD check."""
-    import dataclasses
-
+    """One model of phase 7, with the SSD check."""
     from repro_torch.configs import get_config
-    spec = SSM_MODELS[arch]
-    cfg = dataclasses.replace(get_config(arch), n_layers=spec["n_layers"])
-    return run_lm_model(cfg, spec, SSM_TRAIN, device, timer,
-                        checks={"ssd": check_ssd})
+    return run_lm_model(get_config(arch), SSM_MODELS[arch], SSM_TRAIN,
+                        device, timer, checks={"ssd": check_ssd})
 
 
 def run_ssm(device, timer):
     """Phase 7 (see the module docstring).  At one example a physical
-    batch mamba2's per-example engines reached 79 GB reserved at full
-    depth: every session is collected (``gc.collect``) before the next is
-    built."""
+    batch mamba2's per-example engines reach 79 GB reserved: every session
+    is collected (``gc.collect``) before the next is built."""
     t0 = time.perf_counter()
     res = {arch: run_ssm_model(arch, device, timer) for arch in SSM_MODELS}
     res["seconds"] = time.perf_counter() - t0
@@ -2223,18 +2277,6 @@ def run_moe(device, timer):
 # phase 9: the frontend families
 # --------------------------------------------------------------------------
 
-# past this flat length (the first element past int32 indexing) the
-# kernels' checks run over the whole buffer and compare on windows, one of
-# which straddles it: three or four whole-buffer f32 temporaries (15.3 GB
-# each at the VLM's 3.82G) would not fit beside the operands.  The clip
-# kernels are also held on the buffer's last BIG_FLAT_TAIL elements (the
-# alignment pad and the last leaf's end)
-BIG_FLAT_AT = 2 ** 31
-BIG_FLAT_TAIL = 1 << 24
-# cuBLAS's gemv takes at most 2^31 - 1 rows: past that length no single
-# PyTorch call computes the clip kernels' function (addmv_ and coef @ g
-# raise), so the big buffer's library_ms is None
-GEMV_MAX_ROWS = 2 ** 31 - 1
 # the VLM's gates (one 0-d scalar per super) before every fit and check:
 # the reference initialises them to 0, which makes the cross attention's
 # and proj's gradients exactly zero, so every check on fresh weights
@@ -2260,9 +2302,11 @@ FRONTEND_FITS = (("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
 #   vocab 4.1e-3 to 4.4e-3, but 7.5e-2 to 1.4e-1 at a vocab of 4,096 (the
 #   key biases, whose true gradient is 0: rounding noise on both sides,
 #   against the floor of 1e-3 of a smaller max |acc|), and on the VLM up to
-#   1.2e-1 on the gate (one scalar summed over every token and width): the
-#   6x ratio would reach 0.7 on the gate, so 5e-1, half the 1.0 of a zeroed
-#   leaf (a wrong one reads O(1));
+#   1.2e-1 on the gate (one scalar summed over every token and width).  The
+#   first two card runs read 1.5e-2 (whisper, dec_blocks.attn.wk.b) and
+#   1.4e-2 (the VLM, emb.w) at the card's shapes, the same in both: 1e-1,
+#   about 7x those and a tenth of the 1.0 of a zeroed leaf (a wrong one
+#   reads O(1));
 # * masked_bk: 1.8e-4 to 1.2e-3 of max |acc|, so up to 3.6e-3 expected:
 #   DenseLM's 2e-2; worst leaf 2.8e-3 to 1.4e-2 (the gate again; the layer
 #   norms' gains): the MoE phase's 5e-2;
@@ -2275,7 +2319,7 @@ FRONTEND_FITS = (("masked_pe", 2), ("masked_ghost", 2), ("masked_bk", 2),
 FRONTEND_LIMITS = {
     "pe": {"masked_ghost": 5e-2, "masked_bk": 2e-2,
            "masked_fused_stream_ghost": 2e-4},
-    "leaf": {"masked_ghost": 5e-1, "masked_bk": 5e-2,
+    "leaf": {"masked_ghost": 1e-1, "masked_bk": 5e-2,
              "masked_fused_stream_ghost": 1e-3},
     "norms": 1e-3, "forced": 1e-4}
 
@@ -2335,184 +2379,20 @@ FRONTEND_MODELS = {
 FRONTEND_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, smoke=False)
 
 
-def _leaf_windows(view):
-    """label -> leaf index: the leaf that holds flat element BIG_FLAT_AT
-    (2^31) and the last leaf."""
+def held_windows(view):
+    """Where the update's and the clip kernels' checks hold each kernel
+    against its plain version: (None, None), the whole buffer, up to
+    BIG_FLAT_AT; past it the leaf that holds element BIG_FLAT_AT and the
+    last leaf (the update's leaf indices; it leaves the pad alone), and
+    that leaf's span and the buffer's last BIG_FLAT_TAIL elements (the clip
+    kernels' spans)."""
+    if view.total <= BIG_FLAT_AT:
+        return None, None
     i = next(i for i, (o, n) in enumerate(zip(view.offsets, view.sizes))
              if o <= BIG_FLAT_AT < o + n)
-    return {f"leaf_at_2^31:{view.names[i]}": i,
-            f"last_leaf:{view.names[-1]}": len(view.names) - 1}
-
-
-def check_big_flat(view, device, B, timer, seed=(0x1234, 0xBEEF)):
-    """The update and both clip kernels over the whole flat buffer of a
-    view above 2^31 elements, each held against its plain version on
-    windows: the leaf that holds element 2^31 and the buffer's tail (the
-    last leaf for the update, which leaves the pad alone; the last
-    BIG_FLAT_TAIL elements for the clip kernels).  The
-    operand and noise-free updates and the clip kernels bitwise; the
-    Threefry update within the normals' bound (1e-6).  Times over the
-    whole buffer beside the bound, the plain version (the update's per
-    leaf) and the library call."""
-    import torch
-    from repro_torch.kernels import clip_accum as ca
-    from repro_torch.kernels import noisy_update as nu
-
-    assert view.total > BIG_FLAT_AT, view.total
-    gen = torch.Generator(device=device).manual_seed(6)
-    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)
-    out = {}
-    # -- noisy_sgd_update: one launch over every leaf
-    leaves = _leaf_windows(view)
-    span = {w: (view.offsets[i], view.offsets[i] + view.sizes[i])
-            for w, i in leaves.items()}
-    params = {nm: rnd(*view.shapes[i]) for i, nm in enumerate(view.names)}
-    acc, mom, z = rnd(view.total), rnd(view.total), rnd(view.total)
-    args = (2.3, 64.0, 1e-3)
-    checks, max_err = {}, 0.0
-    for mu in (0.0, 0.9):
-        sc, inv_l, lr, mu32 = nu.update_scalars(*args, mu)
-        for kind in ("operand", "none", "threefry"):
-            before = {w: (params[view.names[i]].reshape(-1).clone(),
-                          mom[slice(*span[w])].clone())
-                      for w, i in leaves.items()}
-            nu.tree_noisy_update(
-                params, acc, seed if kind != "none" else None, *args,
-                view=view, momentum_buf=mom if mu else None, momentum=mu,
-                noise=z if kind == "operand" else None)
-            for w, i in leaves.items():
-                a, b = span[w]
-                pw, mw = before[w]
-                zz = (z[a:b] if kind == "operand" else
-                      nu.threefry_normal(nu.leaf_seed(seed, i), b - a,
-                                         device)
-                      if kind == "threefry" else None)
-                nu.noisy_sgd_update_plain(pw, acc[a:b], zz, sc, inv_l, lr,
-                                          mw if mu else None, mu32)
-                pk = params[view.names[i]].reshape(-1)
-                err = float((pk - pw).abs().max())
-                bitwise = same_bits(pk, pw)
-                if mu:
-                    err = max(err, float((mom[a:b] - mw).abs().max()))
-                    bitwise = bitwise and same_bits(mom[a:b], mw)
-                key = f"{w}_{kind}_mom{mu}"
-                checks[key] = {"bitwise": bitwise, "max_abs_err": err,
-                               "window": [a, b]}
-                if kind == "threefry":
-                    assert err <= 1e-6, (key, checks[key])
-                else:
-                    assert bitwise, (key, checks[key])
-                max_err = max(max_err, err)
-                del zz, pw, mw
-            del before
-    del z
-    torch.cuda.empty_cache()
-    n_par = view.n_params
-
-    def kernel_step(mu=0.9):
-        nu.tree_noisy_update(params, acc, seed, *args, view=view,
-                             momentum_buf=mom if mu else None, momentum=mu)
-
-    sc, inv_l, lr, mu32 = nu.update_scalars(*args, 0.9)
-
-    def plain_step():
-        for i, nm in enumerate(view.names):
-            o, n = view.offsets[i], view.sizes[i]
-            nu.noisy_sgd_update_plain(
-                params[nm].view(-1), acc[o:o + n],
-                nu.threefry_normal(nu.leaf_seed(seed, i), n, device), sc,
-                inv_l, lr, mom[o:o + n], mu32)
-
-    before = nu.noisy_sgd_update.launches
-    kernel_step()
-    checks["launches_per_step"] = nu.noisy_sgd_update.launches - before
-    assert device.type != "cuda" or checks["launches_per_step"] == 1
-    bms, by = bound_ms(20.0 * n_par, THREEFRY_UPDATE_F32_OPS * n_par,
-                       THREEFRY_I32_OPS * n_par)
-    timing = {"ms": timer(kernel_step, 5), "plain_ms": timer(plain_step, 1,
-                                                             warmup=1),
-              "bound_ms": bms, "bound_by": by, "library_ms": None}
-    # the main path's form here: no momentum (p and acc read, p written)
-    checks["no_momentum_ms"] = timer(lambda: kernel_step(0.0), 5)
-    checks["no_momentum_bound_ms"] = bound_ms(
-        12.0 * n_par, (THREEFRY_UPDATE_F32_OPS - 2) * n_par,
-        THREEFRY_I32_OPS * n_par)[0]
-    out["noisy_sgd_update"] = {"checks": checks, "max_abs_err": max_err,
-                               **timing}
-    log(f"big flat noisy_sgd_update: {json.dumps(out['noisy_sgd_update'])}")
-    del params, acc, mom
-    torch.cuda.empty_cache()
-    # -- the clip kernels, m = B rows of the flat length: the leaf at 2^31
-    # and the buffer's last BIG_FLAT_TAIL elements
-    d = view.total
-    i = next(iter(leaves.values()))
-    spans = {next(iter(leaves)): (view.offsets[i],
-                                  view.offsets[i] + view.sizes[i]),
-             "tail": (d - BIG_FLAT_TAIL, d)}
-    norms = torch.rand(B, generator=gen, device=device) * 9.0
-    mask = torch.ones(B, device=device)
-    acc = rnd(d)
-    checks, max_err, timing = {}, 0.0, None
-    for dt in (torch.float32, torch.bfloat16):
-        g = rnd(B, d).to(dt)
-        before = {w: acc[a:b].clone() for w, (a, b) in spans.items()}
-        ca.clip_accum_inplace(acc, g, norms, mask, 4.63)
-        for w, (a, b) in spans.items():
-            want = ca.clip_accum_inplace_plain(before[w], g[:, a:b], norms,
-                                               mask, 4.63)
-            key = f"{w}_m{B}_{str(dt).split('.')[-1]}"
-            err = float((acc[a:b] - want).abs().max())
-            checks[key] = {"bitwise": same_bits(acc[a:b], want),
-                           "max_abs_err": err, "window": [a, b]}
-            assert checks[key]["bitwise"], (key, checks[key])
-            max_err = max(max_err, err)
-        del before
-        if dt == torch.float32:
-            coef = ca.clip_coefs(norms, mask, 4.63)
-            bms, by = bound_ms((4.0 * B + 8.0) * d, 2.0 * B * d)
-            timing = {
-                "ms": timer(lambda: ca.clip_accum_inplace(
-                    acc, g, norms, mask, 4.63), 5),
-                "plain_ms": timer(lambda: ca.clip_accum_inplace_plain(
-                    acc, g, norms, mask, 4.63), 2),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": None if d > GEMV_MAX_ROWS else timer(
-                    lambda: acc.addmv_(g.T, coef), 5)}
-        del g
-    out["clip_accum_inplace"] = {"checks": checks, "max_abs_err": max_err,
-                                 **timing}
-    log(f"big flat clip_accum_inplace: "
-        f"{json.dumps(out['clip_accum_inplace'])}")
-    del acc
-    torch.cuda.empty_cache()
-    checks, max_err, timing = {}, 0.0, None
-    for dt in (torch.float32, torch.bfloat16):
-        g = rnd(B, d).to(dt)
-        res = ca.clip_accum(g, norms, mask, 4.63)
-        for w, (a, b) in spans.items():
-            want = ca.clip_accum_plain(g[:, a:b], norms, mask, 4.63)
-            key = f"{w}_m{B}_{str(dt).split('.')[-1]}"
-            err = float((res[a:b] - want).abs().max())
-            checks[key] = {"bitwise": same_bits(res[a:b], want),
-                           "max_abs_err": err, "window": [a, b]}
-            assert checks[key]["bitwise"], (key, checks[key])
-            max_err = max(max_err, err)
-        del res
-        if dt == torch.float32:
-            coef = ca.clip_coefs(norms, mask, 4.63)
-            bms, by = bound_ms((4.0 * B + 4.0) * d, 2.0 * B * d)
-            timing = {
-                "ms": timer(lambda: ca.clip_accum(g, norms, mask, 4.63), 5),
-                "plain_ms": timer(lambda: ca.clip_accum_plain(
-                    g, norms, mask, 4.63), 2),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": None if d > GEMV_MAX_ROWS else timer(
-                    lambda: coef @ g, 5)}
-        del g
-    out["clip_accum"] = {"checks": checks, "max_abs_err": max_err, **timing}
-    log(f"big flat clip_accum: {json.dumps(out['clip_accum'])}")
-    torch.cuda.empty_cache()
-    return out
+    return ([i, len(view.names) - 1],
+            [(view.offsets[i], view.offsets[i] + view.sizes[i]),
+             (view.total - BIG_FLAT_TAIL, view.total)])
 
 
 def run_frontend(device, timer):
