@@ -23,7 +23,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                and the DenseLM direct-path shape; bf16, and f32 at three of
                them; reruns bit-identical, one launch per call, and one
                device kernel per call as ``torch.profiler`` sees it) and the
-               resident ``clip_accum``;
+               resident ``clip_accum``; both clip kernels also timed at one
+               and two rows (``CLIP_TIMED_ROWS``: against the gemv and, at
+               one row, the elementwise call) and held bitwise at their
+               ragged edges (``CLIP_EDGES``: an odd length, bases off 16
+               bytes, the scalar head, tail and all-scalar paths), reruns
+               bit-identical, one device kernel per call;
 4. fit      — ``PrivacySession.fit()`` of full-width ViT-Base: 3 Poisson
                DP-SGD steps with ``masked_fused_stream``, ``masked_ghost``
                and ``masked_bk`` and 1 with ``masked_fused``; every kernel's
@@ -187,7 +192,7 @@ NORMAL_ULP_BOUND = 2          # in-kernel normals against the plain version
 BIG_FLAT_AT = 2 ** 31
 BIG_FLAT_TAIL = 1 << 24
 # cuBLAS's gemv takes at most 2^31 - 1 rows (addmv_ and coef @ g raise
-# past it): the clip kernels' yardstick changes form there (clip_library_fn)
+# past it): the clip kernels' yardstick changes form there (clip_library_fns)
 GEMV_MAX_ROWS = 2 ** 31 - 1
 # masked_fused_stream at a tile below the batch against masked_pe at the
 # whole batch, as a share of max |acc|: a row's per-example gradient bits
@@ -572,23 +577,37 @@ def check_tree_noisy_update(view, device, seed, leaves=None):
     return res, max_err
 
 
-def clip_library_fn(g, coef, acc=None):
-    """The clip kernels' yardstick, as a function of no arguments: one
-    PyTorch call computing the same function on the same inputs (another
-    summation order), ``coef @ g``, or ``acc.addmv_(g.T, coef)`` for the
-    in-place form.  cuBLAS's gemv raises past GEMV_MAX_ROWS columns; past
-    them a single row takes the elementwise ``g[0] * coef`` or
-    ``acc.addcmul_(g[0], coef)``, which move the bytes the bound counts,
-    and more rows take none (None; no model here reaches that: the one
-    buffer past 2^31 runs a physical batch of 1)."""
+def clip_library_fns(g, coef, acc=None):
+    """The clip kernels' yardsticks, name -> a function of no arguments:
+    one PyTorch call computing the same function on the same inputs
+    (another summation order).  ``gemv``: ``coef @ g``, or
+    ``acc.addmv_(g.T, coef)`` for the in-place form (cuBLAS's gemv raises
+    past GEMV_MAX_ROWS columns); at one row also ``elementwise``: ``g[0] *
+    coef`` or ``acc.addcmul_(g[0], coef)``, which move just the bytes the
+    bound counts.  Past GEMV_MAX_ROWS more rows have none (empty; no model
+    here reaches that: the one buffer past 2^31 runs a physical batch of
+    1)."""
     m, d = g.shape
+    fns = {}
     if d <= GEMV_MAX_ROWS:
-        return ((lambda: coef @ g) if acc is None
-                else (lambda: acc.addmv_(g.T, coef)))
+        fns["gemv"] = ((lambda: coef @ g) if acc is None
+                       else (lambda: acc.addmv_(g.T, coef)))
     if m == 1:
-        return ((lambda: g[0] * coef) if acc is None
-                else (lambda: acc.addcmul_(g[0], coef)))
-    return None
+        fns["elementwise"] = ((lambda: g[0] * coef) if acc is None
+                              else (lambda: acc.addcmul_(g[0], coef)))
+    return fns
+
+
+def clip_timing(kernel, plain, library, timer, nbytes, ops):
+    """A clip kernel's times: the kernel, its plain version, each yardstick
+    of ``library`` (``clip_library_fns``) and the faster of them as
+    ``library_ms`` (None where there is none), beside the bound."""
+    bms, by = bound_ms(nbytes, ops)
+    lib = {name: timer(fn, 10) for name, fn in library.items()}
+    return {"ms": timer(kernel, 10), "plain_ms": timer(plain, 3),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": min(lib.values()) if lib else None,
+            "library": lib}
 
 
 def clip_inputs(gen, m, device):
@@ -603,12 +622,13 @@ def clip_inputs(gen, m, device):
     return norms, mask
 
 
-def check_clip_accum(view, device, tile, timer, spans=None):
-    """clip_accum_inplace at the full flat length, m in {1, tile}, f32 and
-    bf16 grads, bitwise against its plain version on ``spans`` ((start,
-    end) of the flat buffer; all of it by default): the kernel folds into
-    the accumulator in place, the plain version into copies of the spans
-    taken just before."""
+def check_clip_accum(view, device, tile, timer, spans=None, timed=()):
+    """clip_accum_inplace at the full flat length, m in {1, tile} and
+    ``timed``, f32 and bf16 grads, bitwise against its plain version on
+    ``spans`` ((start, end) of the flat buffer; all of it by default): the
+    kernel folds into the accumulator in place, the plain version into
+    copies of the spans taken just before.  Timed in f32 at m = tile and
+    at each m of ``timed`` (``by_m``); the top-level times are tile's."""
     import torch
     from repro_torch.kernels import clip_accum as ca
 
@@ -617,8 +637,8 @@ def check_clip_accum(view, device, tile, timer, spans=None):
     spans = [(0, d)] if spans is None else spans
     checks = {"windows": spans}
     max_err = 0.0
-    timing = None
-    for m in sorted({1, tile}):
+    by_m = {}
+    for m in sorted({1, tile, *timed}):
         norms, mask = clip_inputs(gen, m, device)
         acc = torch.randn(d, generator=gen, device=device)
         for dt in (torch.float32, torch.bfloat16):
@@ -636,20 +656,17 @@ def check_clip_accum(view, device, tile, timer, spans=None):
             checks[key] = {"bitwise": bitwise, "max_abs_err": err}
             assert bitwise, f"clip_accum_inplace {key}: {err}"
             max_err = max(max_err, err)
-            if m == tile and dt == torch.float32:
+            if m in (tile, *timed) and dt == torch.float32:
                 coef = ca.clip_coefs(norms, mask, 4.63)
-                library = clip_library_fn(g, coef, acc)  # or None
-                bms, by = bound_ms((4.0 * m + 8.0) * d, 2.0 * m * d)
-                timing = {
-                    "ms": timer(lambda: ca.clip_accum_inplace(
-                        acc, g, norms, mask, 4.63), 10),
-                    "plain_ms": timer(lambda: ca.clip_accum_inplace_plain(
-                        acc, g, norms, mask, 4.63), 3),
-                    "bound_ms": bms, "bound_by": by,
-                    "library_ms": library and timer(library, 10)}
+                by_m[m] = clip_timing(
+                    lambda: ca.clip_accum_inplace(acc, g, norms, mask, 4.63),
+                    lambda: ca.clip_accum_inplace_plain(acc, g, norms, mask,
+                                                        4.63),
+                    clip_library_fns(g, coef, acc), timer,
+                    (4.0 * m + 8.0) * d, 2.0 * m * d)
             del g
         del acc
-    return checks, max_err, timing
+    return checks, max_err, dict(by_m[tile], by_m=by_m)
 
 
 def device_kernels(fn):
@@ -792,45 +809,125 @@ def check_ghost_norm(device, timer, shapes=None):
     return res, max_err
 
 
-def check_clip_accum_resident(view, device, batch, timer, spans=None):
-    """The resident clip_accum at (batch, flat length), f32 and bf16,
-    bitwise against its plain version on ``spans`` ((start, end) of the
-    flat buffer; all of it by default); timed in f32 (the per-example
-    grads' dtype on the main path)."""
+def check_clip_accum_resident(view, device, batch, timer, spans=None,
+                              timed=()):
+    """The resident clip_accum at (m, flat length) for m in {batch} and
+    ``timed``, f32 and bf16, bitwise against its plain version on ``spans``
+    ((start, end) of the flat buffer; all of it by default); timed in f32
+    (the per-example grads' dtype on the main path) at each m (``by_m``);
+    the top-level times are the batch's."""
     import torch
     from repro_torch.kernels import clip_accum as ca
 
     gen = torch.Generator(device=device).manual_seed(4)
-    d, m = view.total, batch
+    d = view.total
     spans = [(0, d)] if spans is None else spans
-    norms, mask = clip_inputs(gen, m, device)
-    checks, max_err, timing = {"windows": spans}, 0.0, None
-    for dt in (torch.float32, torch.bfloat16):
-        g = torch.randn(m, d, generator=gen, device=device).to(dt)
-        k = ca.clip_accum(g, norms, mask, 4.63)
-        err, bitwise = 0.0, True
-        for a, b in spans:
-            p = ca.clip_accum_plain(g[:, a:b], norms, mask, 4.63)
-            err = max(err, float((k[a:b] - p).abs().max()))
-            bitwise = bitwise and same_bits(k[a:b], p)
-            del p
-        del k
-        key = f"m{m}_{str(dt).split('.')[-1]}"
-        checks[key] = {"bitwise": bitwise, "max_abs_err": err}
-        assert bitwise, f"clip_accum {key}: {err}"
-        max_err = max(max_err, err)
-        if dt == torch.float32:
-            coef = ca.clip_coefs(norms, mask, 4.63)
-            library = clip_library_fn(g, coef)  # or None
-            bms, by = bound_ms((4.0 * m + 4.0) * d, 2.0 * m * d)
-            timing = {
-                "ms": timer(lambda: ca.clip_accum(g, norms, mask, 4.63), 10),
-                "plain_ms": timer(lambda: ca.clip_accum_plain(
-                    g, norms, mask, 4.63), 3),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": library and timer(library, 10)}
-        del g
-    return checks, max_err, timing
+    checks, max_err, by_m = {"windows": spans}, 0.0, {}
+    for m in sorted({batch, *timed}):
+        norms, mask = clip_inputs(gen, m, device)
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.randn(m, d, generator=gen, device=device).to(dt)
+            k = ca.clip_accum(g, norms, mask, 4.63)
+            err, bitwise = 0.0, True
+            for a, b in spans:
+                p = ca.clip_accum_plain(g[:, a:b], norms, mask, 4.63)
+                err = max(err, float((k[a:b] - p).abs().max()))
+                bitwise = bitwise and same_bits(k[a:b], p)
+                del p
+            del k
+            key = f"m{m}_{str(dt).split('.')[-1]}"
+            checks[key] = {"bitwise": bitwise, "max_abs_err": err}
+            assert bitwise, f"clip_accum {key}: {err}"
+            max_err = max(max_err, err)
+            if dt == torch.float32:
+                coef = ca.clip_coefs(norms, mask, 4.63)
+                by_m[m] = clip_timing(
+                    lambda: ca.clip_accum(g, norms, mask, 4.63),
+                    lambda: ca.clip_accum_plain(g, norms, mask, 4.63),
+                    clip_library_fns(g, coef), timer, (4.0 * m + 4.0) * d,
+                    2.0 * m * d)
+            del g
+    return checks, max_err, dict(by_m[batch], by_m=by_m)
+
+
+# the rows at which phase 3 times both clip kernels besides the stream tile
+# and the physical batch: the one- and two-row calls of the SSM, hybrid,
+# MoE and VLM fits, at ViT-Base's flat length
+CLIP_TIMED_ROWS = (1, 2)
+# the clip kernels' ragged edges: (label, length, offsets of acc and of g
+# in elements from a 16-byte aligned base)
+CLIP_EDGES = (("odd", 1_000_003, 0, 0), ("both_off", 1_000_000, 1, 1),
+              ("g_off", 1_000_000, 0, 1))
+
+
+def check_clip_edges(device):
+    """Both clip kernels, f32 and bf16, m in {1, 3}, at CLIP_EDGES: an odd
+    length (one row: vectors and a scalar tail; three rows drift out of
+    phase: all scalar), acc and g one element off 16 bytes (contiguous
+    ``buf[1:]``: a scalar head, vectors, a scalar tail) and g alone off
+    (all scalar).  Each call bitwise against its plain version, a rerun
+    bit-identical, one launch and (on the card) one device kernel per
+    call.  Returns the checks and the paths the splits took."""
+    import torch
+    from repro_torch.kernels import clip_accum as ca
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    res, paths = {}, set()
+    for label, d, a_off, g_off in CLIP_EDGES:
+        for m in (1, 3):
+            norms, mask = clip_inputs(gen, m, device)
+            for dt in (torch.float32, torch.bfloat16):
+                gbuf = torch.randn(g_off + m * d, generator=gen,
+                                   device=device).to(dt)
+                g = gbuf[g_off:].view(m, d)
+                abuf = torch.randn(a_off + d, generator=gen, device=device)
+                for form, wrapper in (("inplace", ca.clip_accum_inplace),
+                                      ("resident", ca.clip_accum)):
+                    if form == "inplace":
+                        want = ca.clip_accum_inplace_plain(
+                            abuf[a_off:].clone(), g, norms, mask, 4.63)
+
+                        def run():
+                            out = abuf.clone()[a_off:]
+                            return ca.clip_accum_inplace(out, g, norms, mask,
+                                                         4.63)
+                    else:
+                        want = ca.clip_accum_plain(g, norms, mask, 4.63)
+
+                        def run():
+                            return ca.clip_accum(g, norms, mask, 4.63)
+                    before = wrapper.launches
+                    k = run()
+                    launches = wrapper.launches - before
+                    rerun = run()
+                    head, vecs, tail = ca.clip_split(
+                        k.data_ptr(), g.data_ptr(), g.element_size(), m, d)
+                    took = (["head"] if head and vecs else []) + (
+                        ["vectors"] if vecs else ["scalar"]) + (
+                        ["tail"] if tail and vecs else [])
+                    paths.update(took)
+                    c = {"split": [head, vecs, tail], "paths": took,
+                         "bitwise": same_bits(k, want),
+                         "max_abs_err": float((k - want).abs().max()),
+                         "rerun_bitwise": same_bits(k, rerun),
+                         "launches_per_call": launches}
+                    key = f"{form}_{label}_m{m}_{str(dt).split('.')[-1]}"
+                    if device.type == "cuda":
+                        out = abuf.clone()[a_off:]
+                        c["device_kernels"] = device_kernels(
+                            (lambda: ca.clip_accum_inplace(
+                                out, g, norms, mask, 4.63))
+                            if form == "inplace" else run)
+                        assert c["launches_per_call"] == 1, (key, c)
+                        assert c["device_kernels"] is None or len(
+                            c["device_kernels"]) == 1, (key, c)
+                        del out
+                    assert c["bitwise"] and c["rerun_bitwise"], (key, c)
+                    res[key] = c
+                    del k, rerun, want
+                del gbuf, g, abuf
+    assert paths == {"head", "vectors", "tail", "scalar"}, paths
+    return res, sorted(paths)
 
 
 # --------------------------------------------------------------------------
@@ -2465,18 +2562,25 @@ def main() -> int:
         f"stream tile {tile}")
     nu_checks, nu_err, nu_time = check_noisy_update(view, device, cuda_ms)
     log(f"noisy_sgd_update: {json.dumps(nu_checks)} {json.dumps(nu_time)}")
-    ca_checks, ca_err, ca_time = check_clip_accum(view, device, tile, cuda_ms)
+    ca_checks, ca_err, ca_time = check_clip_accum(view, device, tile, cuda_ms,
+                                                  timed=CLIP_TIMED_ROWS)
     log(f"clip_accum_inplace: {json.dumps(ca_checks)} {json.dumps(ca_time)}")
     torch.cuda.empty_cache()
     gn_checks, gn_err = check_ghost_norm(device, cuda_ms)
     log(f"ghost_norm_dense: {json.dumps(gn_checks)}")
     cr_checks, cr_err, cr_time = check_clip_accum_resident(
-        view, device, train_kw["physical_batch"], cuda_ms)
+        view, device, train_kw["physical_batch"], cuda_ms,
+        timed=CLIP_TIMED_ROWS)
     log(f"clip_accum: {json.dumps(cr_checks)} {json.dumps(cr_time)}")
+    torch.cuda.empty_cache()
+    edges, edge_paths = check_clip_edges(device)
+    log(f"clip kernels' edges ({', '.join(edge_paths)}): "
+        f"{json.dumps(edges)}")
     record["kernel_checks"] = {"noisy_sgd_update": nu_checks,
                                "clip_accum_inplace": ca_checks,
                                "ghost_norm_dense": gn_checks,
-                               "clip_accum": cr_checks}
+                               "clip_accum": cr_checks,
+                               "clip_edges": edges}
     torch.cuda.empty_cache()
     # 4. fit() at full width per engine, each with its counters set to 0
     # just before and read just after; then the engines on one batch, the

@@ -17,6 +17,7 @@ oracle's fold.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -24,6 +25,9 @@ from . import _build
 
 # the kernel keeps the m coefficients in shared memory (48 KB without opt-in)
 MAX_TILE = 12288
+# elements per vector of the kernel (its kVec): a float4 of acc and of f32
+# rows, 8 bytes of bf16 rows
+VEC = 4
 
 
 def clip_coefs(norms, mask, clip_norm):
@@ -82,17 +86,40 @@ def _check_operands(grads, norms, mask, acc=None) -> None:
         raise ValueError(f"{m} rows exceed the kernel's {MAX_TILE}")
 
 
+def clip_split(out_addr: int, g_addr: int, g_itemsize: int, m: int,
+               d: int) -> Tuple[int, int, int]:
+    """How the kernel walks a call: ``(head, vectors, tail)``, with
+    ``head + VEC * vectors + tail == d``.  Elements ``[0, head)`` and the
+    last ``tail`` go one by one, the rest ``VEC`` at a time, where the
+    output (``acc`` or ``out``, f32, at byte address ``out_addr``) and
+    every row of ``g`` (at ``g_addr``, ``g_itemsize`` bytes an element,
+    rows ``d`` apart) start a vector on a ``VEC * itemsize`` boundary.
+    Every row is in phase with the output when ``m`` is 1 or ``d`` is a
+    multiple of ``VEC``; otherwise, or when the output and ``g`` sit at
+    different phases, the split is ``(d, 0, 0)``: the whole call goes one
+    element at a time, in the same kernel."""
+    head = (-(out_addr // 4)) % VEC
+    in_phase = ((g_addr + head * g_itemsize) % (VEC * g_itemsize) == 0
+                and (m <= 1 or d % VEC == 0))
+    if not in_phase or head >= d:
+        return d, 0, 0
+    vectors = (d - head) // VEC
+    return head, vectors, d - head - VEC * vectors
+
+
 def _launch(entry: str, out, grads, norms, mask, clip_norm) -> None:
     dev = grads.device
     _build.require_hopper(dev)
     lib = _library()
     m, d = grads.shape
+    head, vectors, _ = clip_split(out.data_ptr(), grads.data_ptr(),
+                                  grads.element_size(), m, d)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
             out.data_ptr(), grads.data_ptr(),
             int(grads.dtype == torch.bfloat16), norms.data_ptr(),
-            mask.data_ptr(), float(clip_norm), m, d, stream)
+            mask.data_ptr(), float(clip_norm), m, d, head, vectors, stream)
     _build.check(lib, rc, entry)
 
 
@@ -140,7 +167,8 @@ def _library() -> ctypes.CDLL:
         P = ctypes.c_void_p
         for entry in (lib.clip_accum_inplace_launch, lib.clip_accum_launch):
             entry.argtypes = [P, P, ctypes.c_int, P, P, ctypes.c_float,
-                              ctypes.c_int, ctypes.c_int64, P]
+                              ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, P]
             entry.restype = ctypes.c_int
         lib._typed = True
     return lib

@@ -47,7 +47,7 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().numpy().view(np.int32)
 
 
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 8])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_clip_accum_plain_bitwise_vs_reference(m, dtype):
     rng = np.random.default_rng(m)
