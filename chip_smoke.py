@@ -22,7 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                block shapes a forced direct path gives it, a ragged shape
                and the DenseLM direct-path shape; bf16, and f32 at three of
                them; reruns bit-identical, one launch per call, and one
-               device kernel per call as ``torch.profiler`` sees it) and the
+               device kernel per call as ``torch.profiler`` sees it; calls
+               of one example (``GHOST_STREAM_SHAPE``) issued on two
+               streams with no sync between them bitwise to the same calls
+               in sequence, one scratch per stream) and the
                resident ``clip_accum``; both clip kernels also timed at one
                and two rows (``CLIP_TIMED_ROWS``: against the gemv and, at
                one row, the elementwise call) and held bitwise at their
@@ -30,8 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                bytes, the scalar head, tail and all-scalar paths), reruns
                bit-identical, one device kernel per call;
 4. fit      — ``PrivacySession.fit()`` of full-width ViT-Base: 3 Poisson
-               DP-SGD steps with ``masked_fused_stream``, ``masked_ghost``
-               and ``masked_bk`` and 1 with ``masked_fused``; every kernel's
+               DP-SGD steps with ``masked_fused_stream``, ``masked_ghost``,
+               ``masked_bk`` and ``nonprivate`` and 1 with ``masked_fused``
+               (params sha256 and ε ``float.hex`` recorded); every kernel's
                launch counter is set to 0 just before each run and read just
                after, and each run must launch the kernels its engine
                reaches, ``noisy_sgd_update`` once per step.  Then, on one
@@ -148,11 +152,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                forced direct path against its Gram path; one norm pass
                with the kernel's share of its device time; one accumulate
                per engine against ``nonprivate``, after one with every
-               example masked out that must add exactly 0.
+               example masked out that must add exactly 0;
+10. dp      — data-parallel DP-SGD (``LaunchConfig(mesh=(N,))``, the ``dp``
+               layout) on phase 4's full-width ViT-Base configuration,
+               ``masked_fused_stream``, ``masked_ghost`` and ``nonprivate``
+               3 steps each, in subprocesses started with the environment
+               ``torchrun`` gives (``--dp-worker``): (a) one rank over NCCL,
+               params sha256 and ε ``float.hex`` equal to phase 4's
+               in-process fits; (b) two ranks over gloo on the one card (NCCL
+               refuses two ranks on one device), 16 rows of each physical
+               batch a rank: both ranks bit-identical, a fresh session's
+               rerun bitwise, ε equal to (a)'s, every kernel of the engine
+               launched on every rank (the update once a step), and each
+               engine's reduced accumulator of one logical batch against
+               (a)'s within ``DP_ACC_REL_TOL`` (nonprivate's examples-seen
+               count equal); each reduction's ms per step printed with the
+               card's name and power limit (at one rank the reduction is
+               the identity, so (a)'s reading is the synchronisation
+               around it; the all_to_all and all_gather run over gloo
+               only, as NCCL needs a card a rank).
+
+``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
+``ghost_norm_dense`` check alone against the package under ``DIR/src``
+(another checkout) and prints its record.
 
 The line before the last lists the kernels as JSON (launches summed over
 every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM, MoE and
-frontend phases', the noise-only body as ``noisy_sgd_update``'s
+frontend phases' and phase 10's ranks', the noise-only body as
+``noisy_sgd_update``'s
 ``noise_only`` record; times at ViT-Base's main-path shapes, the other
 phases' in the record); the last line is ``{"ok": true, "device":
 {...}}``.  The full record goes to
@@ -809,6 +836,89 @@ def check_ghost_norm(device, timer, shapes=None):
     return res, max_err
 
 
+# two calls in flight on two streams: the scratch is per (device, stream).
+# One example of 32 x 32 output tiles (1,024 blocks, several waves): the
+# blocks of a call on the other stream fill the SMs that the last wave of
+# this one leaves free, and with one example both take tickets of the same
+# slot.  With two or more examples the tail of one call and the head of the
+# next work on different examples' slots, and a shared scratch still gives
+# the right bits: (2, 16384, 512, 512) did, with every pair of calls
+# overlapping, where this shape gave 14 of 16 calls wrong bits
+# (``--ghost-streams-src`` on the scratch keyed by device alone)
+GHOST_STREAM_SHAPE = (1, 2048, 4096, 4096)
+GHOST_STREAM_PAIRS = 8
+
+
+def check_ghost_norm_streams(device, gn=None):
+    """``ghost_norm_dense`` issued on two side streams with no sync between
+    the calls, against the same calls one after another on the current
+    stream: bitwise, one scratch per stream, and how many pairs of calls on
+    the two streams ran at once on the card (CUDA events around each call).
+    Each call's inputs differ.  ``gn`` is the wrapper's module (default:
+    this checkout's); the caller asserts on the record."""
+    import torch
+    if gn is None:
+        from repro_torch.kernels import ghost_norm as gn
+
+    B, T, di, do = GHOST_STREAM_SHAPE
+    gen = torch.Generator(device=device).manual_seed(5)
+    inputs = [(torch.randn(B, T, di, generator=gen, device=device)
+               .to(torch.bfloat16),
+               torch.randn(B, T, do, generator=gen, device=device)
+               .to(torch.bfloat16)) for _ in range(2 * GHOST_STREAM_PAIRS)]
+    sequential = [gn.ghost_norm_dense(x, dy) for x, dy in inputs]
+    plain_rel = max(float(((k - gn.ghost_norm_dense_plain(x, dy)).abs()
+                           / k.abs()).max())
+                    for k, (x, dy) in zip(sequential, inputs))
+    streams = [torch.cuda.Stream(device), torch.cuda.Stream(device)]
+    cur = torch.cuda.current_stream(device)
+    base = torch.cuda.Event(enable_timing=True)
+    base.record(cur)
+    for s in streams:
+        s.wait_stream(cur)
+    before = gn.ghost_norm_dense.launches
+    overlapped, spans = [], []
+    for i, (x, dy) in enumerate(inputs):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with torch.cuda.stream(streams[i % 2]):
+            ev[0].record()
+            overlapped.append(gn.ghost_norm_dense(x, dy))
+            ev[1].record()
+        spans.append(ev)
+    torch.cuda.synchronize(device)
+    ms = [(base.elapsed_time(a), base.elapsed_time(b)) for a, b in spans]
+    keys = {(device, s.cuda_stream) for s in streams}
+    res = {"shape": list(GHOST_STREAM_SHAPE), "calls": len(inputs),
+           "launches": gn.ghost_norm_dense.launches - before,
+           "sequential_vs_plain_max_rel": plain_rel,
+           "bitwise": all(same_bits(a, b)
+                          for a, b in zip(sequential, overlapped)),
+           "calls_bitwise": sum(same_bits(a, b)
+                                for a, b in zip(sequential, overlapped)),
+           # pairs (i on one stream, j on the other) whose spans intersect
+           "overlapping_pairs": sum(
+               ms[i][0] < ms[j][1] and ms[j][0] < ms[i][1]
+               for i in range(0, len(ms), 2) for j in range(1, len(ms), 2)),
+           "call_ms": [b - a for a, b in ms],
+           "scratch_per_stream": keys <= set(gn._SCRATCH)}
+    return res
+
+
+def ghost_streams_against(src: str) -> int:
+    """``chip_smoke.py --ghost-streams-src DIR``: the two-stream check
+    against the ``repro_torch`` package under ``DIR/src`` (another
+    checkout, such as the commit before the scratch was keyed by stream);
+    prints its record as JSON and exits 0 whatever the bits."""
+    import torch
+    sys.path.insert(0, str(Path(src).resolve() / "src"))
+    from repro_torch.kernels import ghost_norm as gn
+    res = check_ghost_norm_streams(torch.device("cuda", 0), gn)
+    res.update(package=gn.__file__, nvidia_smi=nvidia_smi_line())
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def check_clip_accum_resident(view, device, batch, timer, spans=None,
                               timed=()):
     """The resident clip_accum at (m, flat length) for m in {batch} and
@@ -968,7 +1078,8 @@ def read_counts() -> dict:
 
 
 def run_fit(arch, device, train_kw, engine="masked_fused_stream",
-            direct_denses=0, optimizer=None, fit_kw=None, prepare=None):
+            direct_denses=0, optimizer=None, fit_kw=None, prepare=None,
+            digest=False):
     """fit() of ``arch`` (a name or an ArchConfig) with ``engine`` (and
     ``optimizer``, else the TrainConfig's; ``prepare``, a function of the
     session, runs before the fit);
@@ -979,12 +1090,14 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
     rule sends to the kernel in one norm pass: a record engine must launch
     ``ghost_norm_dense`` exactly that many times per physical batch (one
     norm pass each), the other engines never.  ``nonprivate`` spends no ε
-    and its update is the kernel's noise-free form.  Returns (session,
-    record, launches)."""
+    and its update is the kernel's noise-free form.  With ``digest`` the
+    record holds the params' sha256 and ε's ``float.hex``.  Returns
+    (session, record, launches)."""
     import torch
     from repro_torch.core import DPConfig, fused_sgd
     from repro_torch.core.session import PrivacySession, TrainConfig
     from repro_torch.privacy import epsilon_for
+    from repro_torch.resilience.chaos import digest_params
 
     tc = TrainConfig(**train_kw)
     session = PrivacySession.from_config(
@@ -1059,6 +1172,9 @@ def run_fit(arch, device, train_kw, engine="masked_fused_stream",
               "engine_traits": session.describe()["engine_traits"],
               "physical_batches": len(passes),
               "launches": launches,
+              **({"params_sha256": digest_params(session.state.params),
+                  "eps_hex": float(out["final_eps"]).hex()} if digest
+                 else {}),
               **({"allocated_before_bytes": allocated_before,
                   **memory_record(device, retries)} if cuda
                  else {"peak_mem_bytes": None})}
@@ -2510,6 +2626,287 @@ def run_frontend(device, timer):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 10: data-parallel DP-SGD across ranks (the dp layout)
+# --------------------------------------------------------------------------
+
+# phase 4's ViT-Base configuration, each engine 3 steps, in subprocesses:
+# (a) one rank over NCCL, (b) two ranks over gloo on the one card (NCCL
+# refuses two ranks on one device), 16 rows of every physical batch each
+DP_ENGINES = ("masked_fused_stream", "masked_ghost", "nonprivate")
+DP_STEPS = 3
+DP_CLIP = 4.63
+# each engine's reduced accumulator of one logical batch (70 examples, 3
+# physical batches of 32) over two ranks against one rank, as a share of
+# max |acc|: each rank's per-example grads (or, for nonprivate, its batched
+# backward) come from 16 rows where one rank's come from 32, and the bf16
+# activations turn a last-bit f32 difference into a bf16 rounding step (the
+# streaming tile's question, STREAM_PE_REL_TOL).  Set before the first card
+# run: on the CPU the reduced ViT at the same split reads 1.6e-7 to 3.5e-7
+# for the stream engine (bf16 and f32, seeds 0 and 1), 1.0e-7 for
+# masked_ghost and 9.6e-8 for nonprivate (bf16, seed 0), but the same kind
+# of width difference read 1.6e-2 on the card where the CPU read under 1e-5
+# (a tile of 12 against 32, PERF.md §6), so the streaming tile's bound for
+# all three, 20x below the 1.0 that an example counted twice reads
+DP_ACC_REL_TOL = STREAM_PE_REL_TOL
+# a worker group's wall-clock limit, start-up and the kernels' load included
+DP_GROUP_SECONDS = 300
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 10 (``chip_smoke.py --dp-worker SPEC``, started by
+    :func:`run_dp_group` with the rank in the environment): each engine's
+    ``fit()`` under ``LaunchConfig(mesh=(world,))`` with its kernel
+    counters set to 0 just before and read just after and each reduction
+    timed (synchronised, host clock), optionally a second ``fit()`` from a
+    fresh session (the rerun), then one logical batch accumulated and
+    reduced, which rank 0 saves.  Writes its record as JSON."""
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.data import (BatchMemoryManager, dataset_for_config,
+                                  make_sampler)
+    from repro_torch.launch.executor import LaunchConfig, init_distributed
+    from repro_torch.resilience.chaos import digest_params
+
+    device = init_distributed(spec["device"], spec["backend"])
+    dist = torch.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
+    launch = LaunchConfig(mesh=(world,))
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    def session_for(engine):
+        return PrivacySession.from_config(
+            spec["arch"], DPConfig(engine=engine, clip_norm=DP_CLIP),
+            TrainConfig(**spec["train"]), device=device, launch=launch)
+
+    def timed_reduce(session, times):
+        reduce = session.executor.reduce
+
+        def timed(flat):
+            if flat.numel() == 1:              # the examples-seen count
+                return reduce(flat)
+            sync()
+            t0 = time.perf_counter()
+            out = reduce(flat)
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        session.executor.reduce = timed
+
+    record = {"rank": rank, "world": world, "device": str(device),
+              "backend": dist.get_backend(), "fits": {}}
+    for engine in spec["engines"]:
+        runs = []
+        for _ in range(2 if spec["rerun"] else 1):
+            session = session_for(engine)
+            times = []
+            timed_reduce(session, times)
+            zero_counts()
+            t0 = time.perf_counter()
+            out = session.fit()
+            sync()
+            seconds = time.perf_counter() - t0
+            runs.append({
+                "params_sha256": digest_params(session.state.params),
+                "eps_hex": float(out["final_eps"]).hex(),
+                "history": out["history"], "fit_seconds": seconds,
+                "reduce_ms": times, "launches": read_counts(),
+                "stream_tile": session.describe()["stream_tile"],
+                "launch": session.describe()["launch"]})
+            del session
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        record["fits"][engine] = runs
+    # one logical batch through each engine from a fresh session, reduced;
+    # rank 0 saves the accumulator and the examples-seen count
+    record["acc_examples"] = {}
+    for engine in spec["engines"]:
+        session = session_for(engine)
+        tc = session.train_cfg
+        ds = dataset_for_config(session.model_cfg, tc.n_data, tc.seq_len,
+                                seed=tc.seed)
+        indices = next(iter(make_sampler(tc.sampler, n=tc.n_data, q=tc.q,
+                                         seed=tc.seed, steps=1)))
+        for pb in BatchMemoryManager(ds.fetch, tc.physical_batch).batches(
+                indices):
+            session.accumulate(pb.data, pb.mask)  # this rank's rows of it
+        session._reduce()
+        sync()
+        record["acc_examples"][engine] = int(len(indices))
+        if rank == 0:
+            st = session.state
+            torch.save({"acc": st.grad_acc.cpu(), "seen": st.seen.cpu()},
+                       f"{spec['acc_out']}.{engine}.pt")
+        del session
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(record))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_dp_group(spec: dict, world: int, work: Path) -> list:
+    """Start ``world`` ranks of :func:`dp_worker` (the environment
+    ``torchrun`` would give them, on a free local port), wait for all of
+    them within DP_GROUP_SECONDS, kill every one of them on a failure or
+    the limit, and return their records in rank order."""
+    import os
+    label = spec["label"]
+    spec = dict(spec, out=str(work / label))
+    spec_path = work / f"{label}.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    procs, logs = [], []
+    for r in range(world):
+        log_path = work / f"{label}.rank{r}.log"
+        logs.append(log_path)
+        with open(log_path, "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+                 str(spec_path)], cwd=str(ROOT), stdout=fh,
+                stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+    deadline = time.monotonic() + DP_GROUP_SECONDS
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p for p in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = "\n".join(f"--- rank {r} (exit {c}):\n"
+                          + logs[r].read_text()[-3000:]
+                          for r, c in enumerate(codes))
+        raise RuntimeError(f"phase 10 group {label!r} failed: {codes}\n"
+                           f"{tails}")
+    return [json.loads(Path(f"{spec['out']}.rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def run_dp(device, smi: str, in_process: dict, train_kw: dict,
+           cuda_ranks: bool = True) -> dict:
+    """Phase 10 (see the module docstring).  ``in_process`` holds phase 4's
+    records of the same fits (``params_sha256``, ``eps_hex``), which the
+    one-rank group must equal bitwise.  ``cuda_ranks=False`` runs the
+    ranks on the CPU over gloo (the CPU rehearsal)."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = {"arch": "vit-base", "engines": list(DP_ENGINES),
+            "train": dict(train_kw, steps=DP_STEPS)}
+    if cuda_ranks:
+        one_dev, two_dev = ("cuda", "nccl"), ("cuda:0", "gloo")
+    else:
+        one_dev = two_dev = ("cpu", "gloo")
+    groups = {
+        "one": run_dp_group(dict(base, label="one", device=one_dev[0],
+                                 backend=one_dev[1], rerun=False,
+                                 acc_out=str(work / "acc_one")),
+                            1, work),
+        "two": run_dp_group(dict(base, label="two", device=two_dev[0],
+                                 backend=two_dev[1], rerun=True,
+                                 acc_out=str(work / "acc_two")),
+                            2, work)}
+    res = {"nvidia_smi": smi, "engines": {}}
+    for engine in DP_ENGINES:
+        want = in_process[engine]
+        (a,), ranks = groups["one"][0]["fits"][engine], \
+            [g["fits"][engine] for g in groups["two"]]
+        e = {"one_rank_bitwise_to_phase4": (
+                 a["params_sha256"] == want["params_sha256"]
+                 and a["eps_hex"] == want["eps_hex"]),
+             "two_ranks_bitwise": all(
+                 r[i]["params_sha256"] == ranks[0][0]["params_sha256"]
+                 and r[i]["eps_hex"] == ranks[0][0]["eps_hex"]
+                 for r in ranks for i in range(2)),
+             "two_ranks_rerun_bitwise": all(
+                 r[1]["params_sha256"] == r[0]["params_sha256"]
+                 for r in ranks),
+             "eps_hex": a["eps_hex"],
+             "two_ranks_eps_equal_one": ranks[0][0]["eps_hex"]
+             == a["eps_hex"],
+             # at one rank the reduction is the identity: the reading is
+             # the two synchronisations around it, not a collective
+             "reduce_ms_per_step": {
+                 "one_identity": a["reduce_ms"],
+                 "two_gloo": [r[0]["reduce_ms"] for r in ranks]},
+             "launches": {"one": a["launches"],
+                          "two": [r[0]["launches"] for r in ranks]},
+             "fit_seconds": {"one": a["fit_seconds"],
+                             "two": [r[0]["fit_seconds"] for r in ranks]},
+             "stream_tile": {"one": a["stream_tile"],
+                             "two": [r[0]["stream_tile"] for r in ranks]},
+             "launch": ranks[0][0]["launch"]}
+        res["engines"][engine] = e
+        log(f"[{smi}] phase 10 {engine}: {json.dumps(e)}")
+        assert e["one_rank_bitwise_to_phase4"], (engine, a, want)
+        assert e["two_ranks_bitwise"] and e["two_ranks_rerun_bitwise"], e
+        assert e["two_ranks_eps_equal_one"], e
+        assert e["launch"] == {"executor": "mesh", "mesh": {"data": 2},
+                               "layout": "dp"}, e
+        # every rank launches its engine's kernels, the update once a step
+        for counts in (a["launches"], *e["launches"]["two"]):
+            if not cuda_ranks:
+                break
+            assert counts["noisy_sgd_update"] == DP_STEPS, (engine, counts)
+            for k in ENGINE_KERNELS[engine]:
+                assert counts[k] > 0, (engine, k, counts)
+    res["accumulator"] = {}
+    for engine in DP_ENGINES:
+        one = torch.load(work / f"acc_one.{engine}.pt")
+        two = torch.load(work / f"acc_two.{engine}.pt")
+        scale = float(one["acc"].abs().max())
+        rel = float((two["acc"] - one["acc"]).abs().max()) / scale
+        a = res["accumulator"][engine] = {
+            "examples": groups["one"][0]["acc_examples"][engine],
+            "max_abs": scale, "two_vs_one_rel": rel,
+            "limit": DP_ACC_REL_TOL,
+            # the examples seen: nonprivate's denominator, summed over the
+            # ranks (the private engines divide by the expected batch and
+            # leave rank 0's own count unreduced)
+            "seen": {"one": float(one["seen"]), "two": float(two["seen"])},
+            "examples_equal": groups["two"][0]["acc_examples"][engine]
+            == groups["one"][0]["acc_examples"][engine]}
+        log(f"[{smi}] phase 10 {engine} accumulator, two ranks against "
+            f"one: {json.dumps(a)}")
+        assert a["examples_equal"], (engine, a)
+        assert 0 < scale and math.isfinite(rel) and rel <= DP_ACC_REL_TOL, \
+            (engine, a)
+        if engine == "nonprivate":
+            assert a["seen"] == {"one": a["examples"], "two": a["examples"]}, a
+        del one, two
+    shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2568,6 +2965,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     gn_checks, gn_err = check_ghost_norm(device, cuda_ms)
     log(f"ghost_norm_dense: {json.dumps(gn_checks)}")
+    gn_streams = check_ghost_norm_streams(device)
+    log(f"ghost_norm_dense on two streams: {json.dumps(gn_streams)}")
+    assert gn_streams["bitwise"] and gn_streams["scratch_per_stream"], \
+        gn_streams
+    assert gn_streams["launches"] == gn_streams["calls"], gn_streams
+    assert gn_streams["sequential_vs_plain_max_rel"] <= GHOST_NORM_REL_TOL, \
+        gn_streams
     cr_checks, cr_err, cr_time = check_clip_accum_resident(
         view, device, train_kw["physical_batch"], cuda_ms,
         timed=CLIP_TIMED_ROWS)
@@ -2579,6 +2983,7 @@ def main() -> int:
     record["kernel_checks"] = {"noisy_sgd_update": nu_checks,
                                "clip_accum_inplace": ca_checks,
                                "ghost_norm_dense": gn_checks,
+                               "ghost_norm_streams": gn_streams,
                                "clip_accum": cr_checks,
                                "clip_edges": edges}
     torch.cuda.empty_cache()
@@ -2588,13 +2993,15 @@ def main() -> int:
     record["fit"] = {}
     session = None
     for engine, steps in (("masked_fused_stream", 3), ("masked_ghost", 3),
-                          ("masked_bk", 3), ("masked_fused", 1)):
+                          ("masked_bk", 3), ("nonprivate", DP_STEPS),
+                          ("masked_fused", 1)):
         del session
         torch.cuda.empty_cache()
-        # the head (T = 1) is ViT-Base's one direct-path dense
+        # the head (T = 1) is ViT-Base's one direct-path dense; the digests
+        # are what phase 10's one-rank group must equal
         session, rec, _ = run_fit("vit-base", device,
                                   dict(train_kw, steps=steps), engine,
-                                  direct_denses=1)
+                                  direct_denses=1, digest=True)
         record["fit"][engine] = rec
         log(f"fit {engine}: {json.dumps(rec)}")
         if engine == "masked_fused_stream":
@@ -2645,6 +3052,9 @@ def main() -> int:
     record["frontend"] = front = run_frontend(device, cuda_ms)
     log(f"frontend phase: {front['seconds']:.1f} s")
     phase_end("9")
+    # 10. data-parallel fits over ranks in subprocesses, against phase 4's
+    record["dp"] = dp = run_dp(device, smi, record["fit"], train_kw)
+    log(f"[{smi}] dp phase: {dp['seconds']:.1f} s")
     # the kernels line: launches summed over every fit() run, ViT's,
     # DenseLM's, the lifecycle's, the SSM, MoE and frontend phases' (the
     # chaos runs' own processes aside)
@@ -2657,6 +3067,9 @@ def main() -> int:
                     (ssm, SSM_MODELS), (moe, MOE_MODELS),
                     (front, FRONTEND_MODELS))
                 for arch in models for r in phase[arch]["fit"].values()]
+    # and phase 10's ranks (each rank's first fit per engine)
+    counted += [c for e in dp["engines"].values()
+                for c in (e["launches"]["one"], *e["launches"]["two"])]
     launches = {k: sum(c[k] for c in counted) for k in kernel_wrappers()}
     _, no_time = life["noise_only"]
     kernels = [
@@ -2697,4 +3110,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ghost-streams-src":
+        sys.exit(ghost_streams_against(sys.argv[2]))
     sys.exit(main())

@@ -9,8 +9,15 @@ telemetry registry (``obs=``), manifest checkpoints (``checkpoint``,
 ``checkpoint_async``, ``restore``, ``fit(ckpt=...)``) and the ``fit/*``
 fault points.  A restored session resumes bitwise: params, optimizer state,
 the noise key, the step, the accountant and the streaming tile come back.
-It runs on the card unless the caller passes ``device="cpu"``.  The mesh
-executor and serving are not ported yet.
+It runs on the card unless the caller passes ``device="cpu"``.
+
+``launch=LaunchConfig(mesh=...)`` runs the same ``fit()`` data-parallel
+over ``torch.distributed`` (the ``dp`` layout of
+:mod:`repro_torch.launch.executor`, one process per rank): each rank
+accumulates its rows of every physical batch, the ranks' accumulators are
+folded once per logical batch, and every rank applies the same noisy
+update.  Checkpoints under more than one rank, the ``dp_sp`` and ``2d``
+layouts and serving are not ported yet.
 
 Quickstart::
 
@@ -39,6 +46,7 @@ from ..configs import ArchConfig, get_config
 from ..data import SAMPLER_STREAM_VERSION, BatchMemoryManager, make_sampler
 from ..data.synthetic import dataset_for_config
 from ..launch import costmodel
+from ..launch.executor import LaunchConfig, build_executor
 from ..models import build
 from ..obs import as_registry
 from ..optim import (Optimizer, adamw, constant, cosine,
@@ -123,8 +131,11 @@ class PrivacySession:
 
     def __init__(self, model, model_cfg: ArchConfig, dp: DPConfig,
                  train: TrainConfig, *, device="cuda", params=None,
-                 optimizer: Optional[Optimizer] = None, obs=None):
+                 optimizer: Optional[Optimizer] = None, obs=None,
+                 launch: Optional[LaunchConfig] = None):
         dp.validate()
+        self.launch = launch if launch is not None else LaunchConfig()
+        self.executor = build_executor(self.launch)
         # the sampler's EFFECTIVE per-step rate is what the accountant charges
         self._sampler_q = float(make_sampler(
             train.sampler, n=train.n_data, q=train.q, seed=train.seed).q)
@@ -146,9 +157,10 @@ class PrivacySession:
                 raise ValueError(f"parameter {name!r} is {p.dtype} on "
                                  f"{p.device}; the session trains f32 "
                                  f"parameters on {self.device}")
-        # the noise key: two uint32 words, laid out like a PRNGKey(seed + 1)
-        self.state: TrainState = init_state(
-            params, self.optimizer, (0, (train.seed + 1) & 0xFFFFFFFF))
+        # the noise key: two uint32 words, laid out like a PRNGKey(seed + 1),
+        # the same on every rank (the noise is drawn once per step)
+        self.state: TrainState = self.executor.place_state(init_state(
+            params, self.optimizer, (0, (train.seed + 1) & 0xFFFFFFFF)))
         # a streaming engine's tile: DPConfig's, else sized ONCE, at the
         # first accumulate, and kept (and checkpointed): the per-example
         # gradient bits depend on the tile width, so a tile that followed
@@ -167,7 +179,8 @@ class PrivacySession:
                     train_cfg: Optional[TrainConfig] = None, *,
                     device="cuda", params=None,
                     optimizer: Optional[Optimizer] = None,
-                    obs=None) -> "PrivacySession":
+                    obs=None, launch: Optional[LaunchConfig] = None
+                    ) -> "PrivacySession":
         """Build a session from (arch name | ArchConfig, DPConfig,
         TrainConfig) on ``device``.
 
@@ -178,7 +191,11 @@ class PrivacySession:
         :func:`~repro_torch.utils.params.params_from_numpy`) replaces the
         model's seeded initialisation; ``optimizer`` replaces the one
         ``train_cfg`` describes; ``obs`` (None, an ``ObsConfig`` or a
-        ``MetricsRegistry``) turns on telemetry."""
+        ``MetricsRegistry``) turns on telemetry.  ``launch`` selects the
+        executor: ``LaunchConfig(mesh=(4,))`` runs data-parallel over the
+        4 ranks of the initialised process group, each on ``device``
+        (``cuda:LOCAL_RANK`` after
+        :func:`~repro_torch.launch.executor.init_distributed`)."""
         device = resolve_device(device)
         dp_cfg = dp_cfg if dp_cfg is not None else DPConfig()
         train_cfg = train_cfg if train_cfg is not None else TrainConfig()
@@ -201,7 +218,8 @@ class PrivacySession:
             dp_cfg, noise_multiplier=sigma,
             expected_batch_size=probe.expected_batch_size)
         return cls(model, cfg, dp_cfg, train_cfg, device=device,
-                   params=params, optimizer=optimizer, obs=obs)
+                   params=params, optimizer=optimizer, obs=obs,
+                   launch=launch)
 
     @classmethod
     def restore(cls, path: str, model_cfg, dp_cfg: Optional[DPConfig] = None,
@@ -280,13 +298,25 @@ class PrivacySession:
         return self.state.params
 
     def _place(self, data, mask):
-        dev = self.device
-        return ({k: torch.as_tensor(v).to(dev, non_blocking=True)
-                 for k, v in data.items()},
-                torch.as_tensor(mask).to(dev, non_blocking=True))
+        """A whole physical batch -> this rank's rows on the device."""
+        return self.executor.place(data, mask, self.device)
+
+    def _move(self, data, mask):
+        """This rank's rows (already selected) -> the device."""
+        return self.executor.move(data, mask, self.device)
+
+    def _reduce(self) -> None:
+        """The ranks' partial sums -> the logical batch's, before the
+        update (the identity in one process).  The non-private update's
+        denominator, the examples seen, is summed the same way."""
+        st = self.state
+        st.grad_acc = self.executor.reduce(st.grad_acc)
+        if not self.dp.private:
+            st.seen = self.executor.reduce(st.seen)
 
     def accumulate(self, batch, mask) -> dict:
-        """Clip-and-accumulate one physical batch (no optimizer step)."""
+        """Clip-and-accumulate one physical batch (no optimizer step);
+        under a mesh, this rank's rows of it."""
         batch, mask = self._place(batch, mask)
         self.state, metrics = self._accumulate(self.state, batch, mask)
         return metrics
@@ -297,6 +327,7 @@ class PrivacySession:
         (see :func:`~repro_torch.core.engine.build_update_fn`)."""
         if self._ckpt_writer is not None:
             self._ckpt_writer.fence()     # a pending snapshot's copy first
+        self._reduce()
         self.state = self._update(self.state, noise)
         self._account()
 
@@ -327,7 +358,8 @@ class PrivacySession:
     def evaluate(self, batch, mask=None) -> float:
         if mask is None:
             mask = np.ones(len(next(iter(batch.values()))), np.float32)
-        batch, mask = self._place(batch, mask)
+        # every rank evaluates the whole batch on the same params
+        batch, mask = self._move(batch, mask)
         return float(self._evaluate(self.state.params, batch, mask))
 
     def fit(self, dataset=None, steps: Optional[int] = None, *,
@@ -351,6 +383,8 @@ class PrivacySession:
         when it exceeds one mean step), and the final state is always made
         durable before fit returns; ``ckpt_keep`` manifests are kept."""
         tc = self.train_cfg
+        if ckpt:
+            self._refuse_ranked_checkpoint()
         steps = steps if steps is not None else tc.steps
         start = self.state.step
         if tc.target_eps is not None and start + steps > tc.steps:
@@ -372,7 +406,8 @@ class PrivacySession:
         sampler = make_sampler(tc.sampler, n=tc.n_data, q=tc.q, seed=tc.seed,
                                steps=steps, start_step=start)
         bmm = BatchMemoryManager(dataset.fetch, tc.physical_batch,
-                                 place=self._place)
+                                 place=self._move,
+                                 rows=self.executor.local_rows)
         history = []
         obs = self.obs
         t0 = time.time()
@@ -391,6 +426,7 @@ class PrivacySession:
                 with obs.span("fit/update") as sp:
                     if self._ckpt_writer is not None:
                         self._ckpt_writer.fence()
+                    self._reduce()
                     self.state = self._update(
                         self.state,
                         None if noise is None else noise(start + step_i))
@@ -481,12 +517,20 @@ class PrivacySession:
                 "optimizer": self.optimizer.kind,
                 "stream_tile": self._tile.tile}
 
+    def _refuse_ranked_checkpoint(self) -> None:
+        if self.executor.world > 1:
+            raise NotImplementedError(
+                f"checkpoints under {self.executor.world} ranks are not "
+                f"ported yet (ROADMAP queue 1 item 5): every rank would "
+                f"write the same manifest")
+
     def checkpoint_async(self, path: str, *,
                          keep: Optional[int] = None) -> None:
         """Enqueue a checkpoint on the background writer and return; the
         state is copied before the next update can rewrite it (the writer's
         fence).  Blocks only while a previous write is in flight."""
         from ..checkpoint import AsyncCheckpointer
+        self._refuse_ranked_checkpoint()
         if self._ckpt_writer is None:
             self._ckpt_writer = AsyncCheckpointer(obs=self.obs)
         if keep is not None:
@@ -547,4 +591,5 @@ class PrivacySession:
             "eps_spent": self.privacy_spent()[0],
             "optimizer_steps_taken": self.state.step,
             "device": str(self.device),
+            "launch": self.executor.describe(),
         }

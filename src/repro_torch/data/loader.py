@@ -32,14 +32,19 @@ class BatchMemoryManager:
     ``place`` is the executor's placement hook ``(data, mask) -> (data,
     mask)``: when given, every physical batch is moved to its device (or
     mesh sharding) as it is produced, so host->device transfer overlaps the
-    step instead of sitting on its critical path.
+    step instead of sitting on its critical path.  ``rows``, a function of
+    the physical batch size returning a slice, is the executor's split of
+    the batch over ranks: only those rows (and their mask) are fetched and
+    placed.
     """
 
     def __init__(self, fetch: Callable[[np.ndarray], dict], physical: int,
-                 place: Optional[Callable] = None):
+                 place: Optional[Callable] = None,
+                 rows: Optional[Callable[[int], slice]] = None):
         self.fetch = fetch
         self.p = physical
         self.place = place
+        self.rows = rows
 
     def batches(self, logical_indices: np.ndarray) -> Iterator[PhysicalBatch]:
         tl = len(logical_indices)
@@ -51,7 +56,11 @@ class BatchMemoryManager:
         mask[:tl] = 1.0
         for s in range(k):
             sl = slice(s * self.p, (s + 1) * self.p)
-            data, mk = self.fetch(padded[sl]), mask[sl]
+            idx, mk = padded[sl], mask[sl]
+            if self.rows is not None:
+                own = self.rows(self.p)
+                idx, mk = idx[own], mk[own]
+            data = self.fetch(idx)
             if self.place is not None:
                 data, mk = self.place(data, mk)
             yield PhysicalBatch(

@@ -19,8 +19,9 @@ same function as the f32 product of the upcast inputs), one block per
 per 64 x 64 tile (TF32 would round the inputs).  Each block writes its
 tile's sum of squares into a partial buffer and takes an integer ticket for
 its example; the last block of an example sums the partials in tile order.
-The scratch (partials and tickets) is kept per device and grown as needed;
-the kernel leaves the tickets at zero.  The kernel sums in another order
+The scratch (partials and tickets) is kept per device and stream, so calls
+that overlap on two streams never share it, and grown as needed; the kernel
+leaves the tickets at zero.  The kernel sums in another order
 than the plain version, so the two agree to f32 rounding, not bitwise.
 """
 from __future__ import annotations
@@ -59,21 +60,27 @@ def ghost_norm_dense_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return (m * m).sum(dim=(1, 2))
 
 
-# device -> (f32 partials, int32 tickets, all zero between calls)
-_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+# (device, stream handle) -> (f32 partials, int32 tickets, all zero
+# between calls).  Calls on one stream run in order; calls on two streams
+# may overlap, so each stream has its own
+_SCRATCH: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _scratch(device, n_partials: int, n_tickets: int):
-    """The device's scratch, grown to at least the sizes asked for.  A new
+def _scratch(device, stream: int, n_partials: int, n_tickets: int):
+    """The scratch of ``stream`` on ``device``, grown to at least the
+    sizes asked for and allocated while that stream is current (the
+    caching allocator then reuses its memory on that stream only).  A new
     ticket buffer is zeroed once; the kernel leaves it zeroed."""
-    have = _SCRATCH.get(device)
+    key = (device, stream)
+    have = _SCRATCH.get(key)
     if have is None or have[0].numel() < n_partials \
             or have[1].numel() < n_tickets:
         n_partials = max(n_partials, have[0].numel() if have else 0)
         n_tickets = max(n_tickets, have[1].numel() if have else 0)
         have = (torch.empty(n_partials, dtype=torch.float32, device=device),
                 torch.zeros(n_tickets, dtype=torch.int32, device=device))
-        _SCRATCH[device] = have
+        _SCRATCH[key] = have
     return have
 
 
@@ -106,9 +113,10 @@ def ghost_norm_dense(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _build.require_hopper(dev)
     lib = _library()
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    partials, tickets = _scratch(dev, *scratch_sizes(B, din, dout, x.dtype))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        partials, tickets = _scratch(dev, stream,
+                                     *scratch_sizes(B, din, dout, x.dtype))
         rc = lib.ghost_norm_dense_launch(
             x.data_ptr(), dy.data_ptr(), int(x.dtype == torch.bfloat16),
             partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, T,

@@ -29,6 +29,20 @@ layers at full width).
 ``--optimizer adamw`` takes the generic update; ``--ckpt DIR`` makes the
 final state durable there; ``--metrics events|sampled`` (with
 ``--metrics-jsonl``, ``--profile-dir``) turns on telemetry.
+
+Data-parallel over several ranks (the ``dp`` layout of
+:mod:`repro_torch.launch.executor`), one process per rank under
+``torchrun``: NCCL with each rank on ``cuda:LOCAL_RANK``, or gloo with
+``--device cpu``; only rank 0 prints::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch vit-base --mesh 4 --layout dp
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --device cpu --smoke --mesh 2
+
+``--mesh`` takes a preset (``test`` is 2 x 2) or a shape (``4``, ``2x2``);
+the world size must equal the mesh's size.  ``--layout dp_sp`` and ``2d``
+raise: they are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,10 +50,14 @@ import argparse
 import json
 import sys
 
+import torch
+
 from ..core import DPConfig, clipping
 from ..core.session import PrivacySession, TrainConfig
 from ..data import available_samplers
 from ..obs import add_cli_args, config_from_args, start_profile, stop_profile
+from .executor import (LAYOUTS, LaunchConfig, init_distributed, parse_mesh,
+                       require_ported)
 
 
 def main(argv=None) -> dict:
@@ -70,8 +88,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory (the final state is made "
                          "durable there)")
+    ap.add_argument("--mesh", default=None,
+                    help="a mesh preset (test, production, ...) or shape "
+                         "(4, 2x2): data-parallel over that many ranks "
+                         "under torchrun; default: local")
+    ap.add_argument("--layout", default="dp", choices=list(LAYOUTS))
     add_cli_args(ap)
     args = ap.parse_args(argv)
+    launch = require_ported(LaunchConfig(mesh=parse_mesh(args.mesh),
+                                         layout=args.layout).validate())
+    device = args.device
+    joined = not launch.is_local and not torch.distributed.is_initialized()
+    if not launch.is_local:
+        device = init_distributed(device)
+    try:
+        return _train(args, launch, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, launch: LaunchConfig, device) -> dict:
     private = args.engine != "nonprivate"
     session = PrivacySession.from_config(
         args.arch,
@@ -84,8 +121,9 @@ def main(argv=None) -> dict:
                     target_eps=args.target_eps if private else None,
                     lr=args.lr, optimizer=args.optimizer, smoke=args.smoke,
                     seed=args.seed),
-        device=args.device, obs=config_from_args(args))
-    if args.describe:
+        device=device, obs=config_from_args(args), launch=launch)
+    leader = session.executor.rank == 0
+    if args.describe and leader:
         print(json.dumps(session.describe()))
     if args.profile_dir:
         start_profile(args.profile_dir)
@@ -97,11 +135,13 @@ def main(argv=None) -> dict:
         if session.obs.enabled:
             print(session.obs.snapshot(), file=sys.stderr)
         session.obs.close()
-    for rec in out["history"]:
-        print(json.dumps(rec))
-    print(json.dumps({"final": out["history"][-1] if out["history"] else {},
-                      "sigma": round(out["sigma"], 4),
-                      "final_eps": round(out["final_eps"], 4)}))
+    if leader:
+        for rec in out["history"]:
+            print(json.dumps(rec))
+        print(json.dumps({"final": out["history"][-1] if out["history"]
+                          else {},
+                          "sigma": round(out["sigma"], 4),
+                          "final_eps": round(out["final_eps"], 4)}))
     return out
 
 

@@ -251,15 +251,22 @@ def test_ghost_norm_scratch_sizes(shape, tiles):
 
 
 def test_ghost_norm_scratch_grows_and_keeps_tickets_zero():
+    """The scratch is kept per (device, stream): calls that may overlap
+    on two streams never share partials or tickets."""
     dev = torch.device("cpu")
-    gn._SCRATCH.pop(dev, None)
-    p, t = gn._scratch(dev, 40, 5)
+    for stream in (0, 1):
+        gn._SCRATCH.pop((dev, stream), None)
+    p, t = gn._scratch(dev, 0, 40, 5)
     assert p.dtype == torch.float32 and p.numel() == 40
     assert t.dtype == torch.int32 and t.numel() == 5 and not t.any()
-    assert gn._scratch(dev, 12, 3)[0] is p            # big enough: kept
-    p2, t2 = gn._scratch(dev, 30, 9)                  # more tickets: grown
+    assert gn._scratch(dev, 0, 12, 3)[0] is p         # big enough: kept
+    other = gn._scratch(dev, 1, 12, 3)                # another stream: its own
+    assert other[0] is not p and other[1] is not t
+    p2, t2 = gn._scratch(dev, 0, 30, 9)               # more tickets: grown
     assert p2.numel() == 40 and t2.numel() == 9 and not t2.any()
-    gn._SCRATCH.pop(dev, None)
+    assert gn._scratch(dev, 1, 12, 3)[0] is other[0]
+    for stream in (0, 1):
+        gn._SCRATCH.pop((dev, stream), None)
 
 
 @pytest.mark.parametrize("shape", [(2, 1, 100, 72), (2, 197, 100, 72),
