@@ -86,8 +86,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
                each resumed bitwise from a snapshot; and the paper-protocol
                twin's four engines at full width;
-7. ssm      — full-width mamba2-1.3b (1,446,505,472 params) and
-               zamba2-1.2b (1,170,313,344) at 1,024 tokens, after the
+7. ssm      — full-width mamba2-1.3b cut to 16 of its 48 layers
+               (619,467,776 params; cut in depth so the whole script
+               stays inside its limit on a slow host) and zamba2-1.2b at
+               full depth (1,170,313,344) at 1,024 tokens, after the
                lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
                and zamba2's shared-block shapes (T_eff = 6,144), the
                one-launch update and the clip kernels at each model's flat
@@ -170,7 +172,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                card's name and power limit (at one rank the reduction is
                the identity, so (a)'s reading is the synchronisation
                around it; the all_to_all and all_gather run over gloo
-               only, as NCCL needs a card a rank).
+               only, as NCCL needs a card a rank);
+11. decode  — DenseLM's serving primitives and the sampler on full-width,
+               full-depth qwen2-0.5b (random weights from the seed, bf16
+               activations, a bf16 cache): (a) four rows with prompts of
+               17, 64, 100 and 128 tokens through ``prefill_step`` in
+               chunks of 32 (each row its own ``n_tok``), then 32 greedy
+               ``decode_step`` calls at per-slot positions, every logit row
+               against the full-sequence ``logits()`` of the same tokens
+               within ``DECODE_LOGIT_REL_TOL`` of the position's largest
+               |logit|, greedy tokens equal wherever the full forward's
+               top-2 margin exceeds that share; (b) a scalar position
+               bitwise equal to a (B,) vector of equal positions; (c) each
+               prefill call leaving the cache rows past every row's
+               ``n_tok`` bitwise unchanged; (d) a rerun bit-identical; (e)
+               ``sample_tokens`` on the card against the CPU at the same
+               seeds and positions: keys, random bits and uniforms bitwise,
+               Gumbel values within ``SAMPLER_GUMBEL_ULP_BOUND``, tokens
+               equal, top-k 1 equal to greedy; (f) the check of (a) on
+               full-width, full-depth qwen3-1.7b (qk-norm) over one
+               sequence.  Decode ms per step at B = 1 and 8 slots of a
+               1,024-row cache (tokens/s, the cache's bytes and the step's
+               bound from the bytes it must move), prefill ms per chunk of
+               32 at B = 4, printed with the card's name and power limit;
+               none of the four training kernels is launched.
 
 ``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
 ``ghost_norm_dense`` check alone against the package under ``DIR/src``
@@ -337,20 +362,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sync_card() -> None:
+    """Wait for the card, where there is one (a no-op on the CPU)."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def host_us(fn, iters: int) -> float:
     """Host microseconds per call of ``fn`` (the wrapper's own work and the
     launch), enqueued back to back after a synchronise; the device catches
     up afterwards."""
-    import torch
     fn()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    sync_card()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
     us = 1e6 * (time.perf_counter() - t0) / iters
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    sync_card()
     return us
 
 
@@ -2103,11 +2132,16 @@ def run_lifecycle(device, timer, view):
 # full-width mamba2-1.3b and zamba2-1.2b (the reference's configs: every
 # width, the state, the heads, the chunk, zamba2's attn_every of 6), bf16
 # activations, f32 params, random weights from the seed, at 1,024 tokens (a
-# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.  The
+# multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.
+# zamba2 runs at full depth; mamba2 is cut to 16 of its 48 layers, since
+# the whole script at full depth took 1,220.8 s on a slow host (phase 7
+# 439.6 s of it, about 314 s on a fast one), where 1,050 s is the aim: 171
+# s had to go, and a mamba2 layer takes about 3.5 s of phase 7 on a fast
+# host, about 4.9 on that one, so 32 layers.  The
 # physical batch is the largest of 4, 2 and 1 at which masked_fused fits:
-# 1 for both (at 2 it ran out of the card's memory on both; at 1 it peaks
-# at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and 70.3 on
-# zamba2; H100 80GB HBM3, 700 W)
+# 1 for both (at 2 it ran out of the card's memory on both; at 1 and full
+# depth it peaks at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and
+# 70.3 on zamba2; H100 80GB HBM3, 700 W)
 SSM_TRAIN = dict(n_data=64, q=0.125, target_eps=8.0, seq_len=1024,
                  smoke=False)
 # the record engines against masked_pe on one physical batch, per model,
@@ -2140,7 +2174,8 @@ MAMBA2_LIMITS = {
     "norms": 1e-3, "forced": 1e-4}
 SSM_MODELS = {
     "mamba2-1.3b": dict(
-        params=1_446_505_472, physical_batch=1, limits=MAMBA2_LIMITS,
+        n_layers=16, params=619_467_776, physical_batch=1,
+        limits=MAMBA2_LIMITS,
         # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
         # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
         # and 2,896): the kernel runs in the forced-path check alone
@@ -2352,10 +2387,16 @@ def run_lm_model(cfg, spec, train_kw, device, timer, checks=None):
 
 
 def run_ssm_model(arch, device, timer):
-    """One model of phase 7, with the SSD check."""
+    """One model of phase 7 at its depth, with the SSD check."""
+    import dataclasses
+
     from repro_torch.configs import get_config
-    return run_lm_model(get_config(arch), SSM_MODELS[arch], SSM_TRAIN,
-                        device, timer, checks={"ssd": check_ssd})
+    spec = SSM_MODELS[arch]
+    cfg = get_config(arch)
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return run_lm_model(cfg, spec, SSM_TRAIN, device, timer,
+                        checks={"ssd": check_ssd})
 
 
 def run_ssm(device, timer):
@@ -2907,6 +2948,342 @@ def run_dp(device, smi: str, in_process: dict, train_kw: dict,
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 11: decoding (DenseLM's KV cache, decode and chunked prefill; the
+# per-request sampler)
+# --------------------------------------------------------------------------
+
+# full-width, full-depth qwen2-0.5b (24 layers, d 896, 14 heads, 2 KV heads,
+# QKV bias, vocab 151,936), random weights from the seed, bf16 activations
+# and a bf16 cache: four rows with ragged prompts prefilled in chunks of 32
+# (each row its own n_tok), then greedy decode steps at per-slot positions
+DECODE_ARCH = "qwen2-0.5b"
+DECODE_PROMPTS = (17, 64, 100, 128)
+DECODE_CHUNK = 32
+DECODE_STEPS = 32
+# decode and prefill against the model's own full-sequence logits(), as a
+# share of the position's largest |logit|, set before the first card run:
+# the CPU read 1.3e-2, 1.6e-2 and 1.9e-2 at full width cut to 4, 8 and 16
+# layers (vocab 4,096; the bf16 logits alone round at 2^-8 = 3.9e-3), so
+# about 2.2e-2 at 24 layers; the bound leaves a factor above 2 for the card's
+# other GEMM tilings.  Greedy tokens must agree wherever the full forward's
+# top-2 margin exceeds the same share
+DECODE_LOGIT_REL_TOL = 5e-2
+# the timed decode steps: B = 1 and 8 slots of a 1,024-row cache; prefill:
+# chunks of 32 at B = 4
+DECODE_CACHE = 1024
+DECODE_TIMED_B = (1, 8)
+DECODE_TIMED_STEPS = 20
+PREFILL_TIMED_B = 4
+PREFILL_TIMED_CHUNKS = 12
+# the sampler on the card against the CPU: keys, bits and uniforms bitwise,
+# the Gumbel values within the CPU tests' bound against XLA (4 ULPs of
+# max(|g|, 1): log differs by ULPs between libraries), tokens equal
+SAMPLER_GUMBEL_ULP_BOUND = 4
+# (f): qk-norm at full width: full-width, full-depth qwen3-1.7b (28 layers,
+# d 2048, head_dim 128), one sequence of 24 prompt tokens and 8 steps
+DECODE_QK_ARCH = "qwen3-1.7b"
+DECODE_QK_PROMPT = 24
+DECODE_QK_STEPS = 8
+
+
+def decode_sequence(model, params, prompt, lens, chunk, steps, S,
+                    tails=None):
+    """Ragged prompts (B, max len) through ``prefill_step`` in chunks of
+    ``chunk`` (row r consuming its first lens[r] tokens), then ``steps``
+    greedy ``decode_step`` calls at per-slot positions lens + t.  Returns
+    (the logits at each row's last prompt token (B, V), the decode steps'
+    logits (B, steps, V), the consumed tokens (B, max len + steps), the
+    cache).  With ``tails`` a list, each prefill call's cache rows outside
+    [pos, pos + n_tok) of every row are compared bitwise with their bits
+    before the call and the result appended."""
+    import torch
+    B, dev = prompt.shape[0], prompt.device
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cache = model.init_cache(params, B, S)
+    last = None
+    for i in range(0, max(lens), chunk):
+        n = (lens_t - i).clamp(0, chunk)
+        pos = lens_t.clamp(max=i)
+        before = ({k: c.clone() for k, c in cache["blocks"].items()}
+                  if tails is not None else None)
+        lg, cache = model.prefill_step(params, cache,
+                                       prompt[:, i:i + chunk], pos, n)
+        last = lg.clone() if last is None else torch.where(
+            (n > 0)[:, None], lg, last)
+        if before is not None:
+            rows = torch.arange(S, device=dev)[None, :]
+            kept = (rows < pos[:, None]) | (rows >= (pos + n)[:, None])
+            tails.append(all(
+                same_bits(cache["blocks"][k][:, r, kept[r]],
+                          before[k][:, r, kept[r]])
+                for k in before for r in range(B)))
+    seq = torch.zeros(B, max(lens) + steps, dtype=torch.int32, device=dev)
+    seq[:, :max(lens)] = prompt
+    tok = last.argmax(dim=-1).to(torch.int32)
+    out = []
+    for t in range(steps):
+        seq[torch.arange(B, device=dev), lens_t + t] = tok
+        lg, cache = model.decode_step(params, cache, tok[:, None],
+                                      lens_t + t)
+        out.append(lg)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+    return last, torch.stack(out, 1), seq, cache
+
+
+def teacher_forced(model, lens, last, decoded, seq) -> dict:
+    """Every logit row of ``decode_sequence`` against the full-sequence
+    ``logits()`` of the same tokens, as a share of the position's largest
+    |logit|; greedy tokens compared where the full forward's top-2 margin
+    exceeds DECODE_LOGIT_REL_TOL of it."""
+    import torch
+    with torch.no_grad():
+        full = model.logits(seq)
+    worst, n_pos, n_margin, n_equal = 0.0, 0, 0, 0
+    for r, n in enumerate(lens):
+        got = torch.cat([last[r:r + 1], decoded[r]]).float()
+        ref = full[r, n - 1:n + decoded.shape[1]].float()
+        scale = ref.abs().amax(dim=-1)
+        err = ((got - ref).abs().amax(dim=-1) / scale)
+        worst = max(worst, float(err.max()))
+        top2 = ref.topk(2, dim=-1).values
+        wide = (top2[:, 0] - top2[:, 1]) > DECODE_LOGIT_REL_TOL * scale
+        same = got.argmax(dim=-1) == ref.argmax(dim=-1)
+        n_pos += got.shape[0]
+        n_margin += int(wide.sum())
+        n_equal += int((same & wide).sum())
+    return {"positions": n_pos, "max_rel_err": worst,
+            "margin_positions": n_margin, "greedy_equal": n_equal}
+
+
+def time_decode(model, params, B, S, steps):
+    """Host ms per ``decode_step`` of B slots of an S-row cache (the calls
+    end in a synchronise; the positions S/2 onward), and one more step as
+    ``torch.profiler`` sees it: its device kernels, their device ms, and
+    the three kernel names that take the most of it (None off the
+    card)."""
+    import torch
+    cache = model.init_cache(params, B, S)
+    dev = cache["blocks"]["k"].device
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
+    for i in range(3):
+        model.decode_step(params, cache, tok, S // 2 + i)
+    sync_card()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        model.decode_step(params, cache, tok, S // 2 + 3 + i)
+    sync_card()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = device_kernels(
+        lambda: model.decode_step(params, cache, tok, S // 2 + 3 + steps))
+    if kernels is None:
+        return ms, None
+    by_name = {}
+    for k in kernels:
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["us"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return ms, {"device_kernels": len(kernels),
+                "device_ms": sum(by_name.values()) / 1e3,
+                "top": [{"name": n[:80], "ms": us / 1e3} for n, us in top]}
+
+
+def time_prefill(model, params, B, S, chunk, chunks) -> float:
+    """Host ms per ``prefill_step`` of B rows taking ``chunk`` tokens each
+    (the calls end in a synchronise; positions from 3 chunks in)."""
+    import torch
+    cache = model.init_cache(params, B, S)
+    dev = cache["blocks"]["k"].device
+    toks = torch.zeros(B, chunk, dtype=torch.int32, device=dev)
+    n = torch.full((B,), chunk, dtype=torch.int32, device=dev)
+    for i in range(3):
+        model.prefill_step(params, cache, toks, i * chunk, n)
+    sync_card()
+    t0 = time.perf_counter()
+    for i in range(chunks):
+        model.prefill_step(params, cache, toks, (3 + i) * chunk, n)
+    sync_card()
+    return 1e3 * (time.perf_counter() - t0) / chunks
+
+
+def decode_bound(params, cfg, B, S, cache_bytes_per_elem=2):
+    """(ms, "bytes" | "operations", bytes) of one decode step: every weight
+    read once but the embedding, of which B rows; every layer's K and V
+    cache read once; the new K/V rows and the bf16 logits written; 2 f32
+    ops per weight and slot."""
+    weights = sum(p.numel() * p.element_size() for n, p in params.items()
+                  if n != "emb.w")
+    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * cache_bytes_per_elem
+    nbytes = (weights + B * cfg.d_model * 4 + kv * B * S + kv * B
+              + B * cfg.vocab * 2)
+    ops = 2 * B * sum(p.numel() for n, p in params.items() if n != "emb.w")
+    ms, by = bound_ms(nbytes, f32_ops=ops)
+    return ms, by, nbytes
+
+
+def check_sampler_on_card(logits, device) -> dict:
+    """The sampler on the card against the CPU at the same seeds and
+    positions: keys, bits and uniforms bitwise, the Gumbel values within
+    SAMPLER_GUMBEL_ULP_BOUND ULPs of max(|g|, 1), tokens equal; top-k 1
+    equal to greedy."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import sampling as S
+    B, V = logits.shape
+    cpu = torch.device("cpu")
+    seeds = torch.tensor([0, 1, 2 ** 31 - 1, -7, 11, 11, 5, 2 ** 30],
+                         dtype=torch.int32)[:B]
+    positions = torch.tensor([17, 64, 100, 128, 2 ** 31 - 1, 3, 0, 999],
+                             dtype=torch.int32)[:B]
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.7, 1.3, 0.7, 0.0, 1.0])[:B]
+    top_ks = torch.tensor([0, 0, 5, 1, 0, 50, 5, 0], dtype=torch.int32)[:B]
+    res = {}
+    keys = {d: S.fold_in(S.prng_key(seeds.to(d)), positions.to(d))
+            for d in (device, cpu)}
+    res["keys_bitwise"] = all(torch.equal(a.cpu(), b) for a, b in
+                              zip(keys[device], keys[cpu]))
+    bits = {d: S.random_bits(keys[d], V) for d in keys}
+    res["bits_bitwise"] = torch.equal(bits[device].cpu(), bits[cpu])
+    uni = {d: S.uniform(bits[d]) for d in keys}
+    res["uniform_bitwise"] = same_bits(uni[device].cpu(), uni[cpu])
+    g = {d: S.gumbel(keys[d], V) for d in keys}
+    ref = g[cpu]
+    ulp = torch.from_numpy(np.spacing(ref.abs().clamp_min(1.0).numpy()))
+    res["gumbel_max_ulp"] = float(((g[device].cpu() - ref).abs()
+                                   / ulp).max())
+    args = (positions, seeds, temps, top_ks)
+    on_card = S.sample_tokens(logits, *(a.to(device) for a in args))
+    on_cpu = S.sample_tokens(logits.cpu(), *args)
+    res["tokens"] = on_card.cpu().tolist()
+    res["tokens_equal"] = torch.equal(on_card.cpu(), on_cpu)
+    greedy = S.sample_tokens(logits, *(a.to(device) for a in (
+        positions, seeds, torch.zeros(B), top_ks)))
+    top1 = S.sample_tokens(logits, *(a.to(device) for a in (
+        positions, seeds, torch.full((B,), 0.7),
+        torch.ones(B, dtype=torch.int32))))
+    res["top1_is_greedy"] = torch.equal(greedy, top1)
+    sync_card()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        S.sample_tokens(logits, *(a.to(device) for a in args))
+    sync_card()
+    res["sample_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    return res
+
+
+def run_decode(device, smi: str) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    zero_counts()
+    cfg = get_config(DECODE_ARCH)
+    model = build(cfg, device=device)
+    params = model.params()
+    lens = DECODE_PROMPTS
+    S = max(lens) + DECODE_STEPS
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (len(lens), max(lens))).astype(np.int32)).to(device)
+    res = {"arch": DECODE_ARCH, "prompts": list(lens),
+           "chunk": DECODE_CHUNK, "steps": DECODE_STEPS}
+    # (a) and (c): ragged chunked prefill, greedy decode, the tails
+    tails = []
+    last, decoded, seq, cache = decode_sequence(
+        model, params, prompt, lens, DECODE_CHUNK, DECODE_STEPS, S, tails)
+    assert bool(torch.isfinite(decoded).all()), "non-finite decode logits"
+    res["teacher_forced"] = tf = teacher_forced(model, lens, last, decoded,
+                                                seq)
+    res["tails_bitwise"] = tails
+    log(f"[{smi}] phase 11 (a) prefill + decode against logits(): "
+        f"{json.dumps(tf)}; (c) unconsumed tails bitwise: {tails}")
+    assert tf["max_rel_err"] <= DECODE_LOGIT_REL_TOL, tf
+    assert tf["greedy_equal"] == tf["margin_positions"], tf
+    assert tails and all(tails), tails
+    # (d): a rerun from a fresh cache, bit for bit
+    again = decode_sequence(model, params, prompt, lens, DECODE_CHUNK,
+                            DECODE_STEPS, S)
+    res["rerun_bitwise"] = (
+        same_bits(again[0], last) and same_bits(again[1], decoded)
+        and torch.equal(again[2], seq)
+        and all(same_bits(again[3]["blocks"][k], cache["blocks"][k])
+                for k in cache["blocks"]))
+    del again
+    # (b): a scalar position against a (B,) vector of equal positions
+    B = len(lens)
+    c1, c2 = (model.init_cache(params, B, 16) for _ in range(2))
+    scalar_ok = True
+    for t in range(4):
+        tok = seq[:, t:t + 1]
+        l1, c1 = model.decode_step(params, c1, tok, t)
+        l2, c2 = model.decode_step(params, c2, tok, torch.full(
+            (B,), t, dtype=torch.int32, device=device))
+        scalar_ok = scalar_ok and same_bits(l1, l2)
+    res["scalar_vs_vector_bitwise"] = scalar_ok and all(
+        same_bits(c1["blocks"][k], c2["blocks"][k]) for k in c1["blocks"])
+    log(f"[{smi}] phase 11 (b) scalar pos vs vector bitwise: "
+        f"{res['scalar_vs_vector_bitwise']}; (d) rerun bitwise: "
+        f"{res['rerun_bitwise']}")
+    assert res["scalar_vs_vector_bitwise"] and res["rerun_bitwise"], res
+    # (e): the sampler on the card against the CPU
+    res["sampler"] = smp = check_sampler_on_card(
+        decoded[:, -1].float().repeat(2, 1), device)
+    log(f"[{smi}] phase 11 (e) sampler: {json.dumps(smp)}")
+    assert smp["keys_bitwise"] and smp["bits_bitwise"], smp
+    assert smp["uniform_bitwise"] and smp["tokens_equal"], smp
+    assert smp["gumbel_max_ulp"] <= SAMPLER_GUMBEL_ULP_BOUND, smp
+    assert smp["top1_is_greedy"], smp
+    del cache, c1, c2, last, decoded
+    # the times, with the cache's bytes and each step's bound
+    res["timed"] = {}
+    for b in DECODE_TIMED_B:
+        ms, prof = time_decode(model, params, b, DECODE_CACHE,
+                               DECODE_TIMED_STEPS)
+        bms, by, nbytes = decode_bound(params, cfg, b, DECODE_CACHE)
+        cache_bytes = (cfg.n_layers * 2 * b * DECODE_CACHE * cfg.n_kv_heads
+                       * cfg.hd * 2)
+        res["timed"][f"decode_B{b}"] = rec = {
+            "ms": ms, "tokens_per_s": 1e3 * b / ms, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "cache_bytes": cache_bytes,
+            "profile": prof}
+        log(f"[{smi}] phase 11 decode B = {b}, cache {DECODE_CACHE}: "
+            f"{json.dumps(rec)}")
+    ms = time_prefill(model, params, PREFILL_TIMED_B, DECODE_CACHE,
+                      DECODE_CHUNK, PREFILL_TIMED_CHUNKS)
+    res["timed"]["prefill"] = {
+        "B": PREFILL_TIMED_B, "chunk": DECODE_CHUNK, "ms": ms,
+        "tokens_per_s": 1e3 * PREFILL_TIMED_B * DECODE_CHUNK / ms}
+    log(f"[{smi}] phase 11 prefill B = {PREFILL_TIMED_B}, chunk "
+        f"{DECODE_CHUNK}: {json.dumps(res['timed']['prefill'])}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f): qk-norm at full width
+    qcfg = get_config(DECODE_QK_ARCH)
+    qmodel = build(qcfg, device=device)
+    qparams = qmodel.params()
+    qprompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, qcfg.vocab, (1, DECODE_QK_PROMPT)).astype(np.int32)).to(device)
+    qlast, qdec, qseq, _ = decode_sequence(
+        qmodel, qparams, qprompt, (DECODE_QK_PROMPT,), DECODE_CHUNK,
+        DECODE_QK_STEPS, DECODE_QK_PROMPT + DECODE_QK_STEPS)
+    res["qk_norm"] = qtf = dict(arch=DECODE_QK_ARCH, **teacher_forced(
+        qmodel, (DECODE_QK_PROMPT,), qlast, qdec, qseq))
+    log(f"[{smi}] phase 11 (f) {DECODE_QK_ARCH} against logits(): "
+        f"{json.dumps(qtf)}")
+    assert qtf["max_rel_err"] <= DECODE_LOGIT_REL_TOL, qtf
+    assert qtf["greedy_equal"] == qtf["margin_positions"], qtf
+    del qmodel, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    # decoding is inference: none of the four training kernels is on its
+    # path
+    res["kernel_launches"] = counts = read_counts()
+    assert not any(counts.values()), counts
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3055,6 +3432,11 @@ def main() -> int:
     # 10. data-parallel fits over ranks in subprocesses, against phase 4's
     record["dp"] = dp = run_dp(device, smi, record["fit"], train_kw)
     log(f"[{smi}] dp phase: {dp['seconds']:.1f} s")
+    phase_end("10")
+    # 11. decoding on full-width qwen2-0.5b (and qwen3-1.7b's qk-norm)
+    record["decode"] = dec = run_decode(device, smi)
+    log(f"[{smi}] decode phase: {dec['seconds']:.1f} s")
+    phase_end("11")
     # the kernels line: launches summed over every fit() run, ViT's,
     # DenseLM's, the lifecycle's, the SSM, MoE and frontend phases' (the
     # chaos runs' own processes aside)

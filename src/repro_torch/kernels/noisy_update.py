@@ -57,12 +57,17 @@ CHUNK = 2048
 VEC = 4
 
 
+def _u32(k):
+    return k & _M32 if isinstance(k, torch.Tensor) else int(k) & _M32
+
+
 def threefry2x32(k0, k1, c0, c1):
     """Threefry-2x32, 20 rounds, as the reference's ``threefry2x32``.
 
-    Works on Python ints and on int64 tensors holding uint32 values (every
-    step is masked to 32 bits: PyTorch's uint32 has few ops on the CPU)."""
-    k0, k1 = int(k0) & _M32, int(k1) & _M32
+    Works on Python ints and on int64 tensors holding uint32 values, keys
+    included (every step is masked to 32 bits: PyTorch's uint32 has few ops
+    on the CPU); tensor operands broadcast."""
+    k0, k1 = _u32(k0), _u32(k1)
     ks = (k0, k1, k0 ^ k1 ^ _TF_PARITY)
     x0 = (c0 + k0) & _M32
     x1 = (c1 + k1) & _M32

@@ -25,6 +25,12 @@ op for op, so the rounding points match:
   the optional qk-norm.  The reference takes blocked flash attention from
   ``FLASH_MIN_T`` tokens on (causal only); the port has none yet and
   raises there.
+* ``decode_attention``: the reference's decode branch of ``attention`` —
+  the chunk's T tokens projected, qk-normed and rotated at ``pos + i``,
+  their K/V written into the cache (a ring at ``pos mod window`` for a
+  sliding window) by ``scatter_rows``, then read through the same ``_sdpa``
+  under the reference's mask.  ``init_attn_cache``, ``decode_positions``,
+  ``chunk_valid`` and ``gather_last`` are the reference's cache helpers.
 * ``cross_attention``: the reference's ``attention(..., kv_x=)`` — the
   queries from the stream, the keys and values projected from a second
   stream of S rows (the encoder's frames, the projected image tokens),
@@ -56,7 +62,7 @@ from ..utils.params import path_key
 
 # Sequences at or above this length take blocked flash attention in the
 # reference (``models/flashattn.py``); the port has not ported it (ROADMAP
-# queue 1, item 2) and raises there rather than approximate
+# queue 1, item 3) and raises there rather than approximate
 FLASH_MIN_T = 8192
 
 
@@ -207,7 +213,72 @@ class AttnCfg:
     rope_theta: float = 10000.0
     use_rope: bool = True
     causal: bool = True
-    window: int = 0          # 0 = full; >0 = sliding window
+    window: int = 0          # 0 = full; >0 = sliding window (and ring cache)
+
+
+# ---------------------------------------------------------------------------
+# the KV cache and chunked prefill (decode_attention, DenseLM.decode_step)
+# ---------------------------------------------------------------------------
+
+def decode_positions(pos, B: int, device=None) -> torch.Tensor:
+    """A decode position argument as a (B,) int32 vector on ``device``: a
+    scalar decodes the whole batch in lockstep, a (B,) vector gives every
+    cache slot its own write position (continuous batching)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if pos.dim() == 0:
+        return pos.expand(B)
+    if pos.shape != (B,):
+        raise ValueError(f"decode pos must be scalar or shape ({B},); "
+                         f"got {tuple(pos.shape)}")
+    return pos
+
+
+def chunk_valid(tokens: torch.Tensor, n_tok: torch.Tensor) -> torch.Tensor:
+    """(B, C) bool: token j of a row is consumed iff j < n_tok[row] (0..C).
+    Unconsumed tail tokens leave the cache untouched."""
+    C = tokens.shape[1]
+    return (torch.arange(C, device=tokens.device)[None, :]
+            < n_tok.to(tokens.device)[:, None])
+
+
+def gather_last(x: torch.Tensor, n_tok: torch.Tensor) -> torch.Tensor:
+    """x (B, C, ...) -> (B, 1, ...): each row's entry at its last consumed
+    index n_tok - 1 (clipped to 0 for a row that consumed nothing, whose
+    output the caller ignores)."""
+    last = (n_tok.to(x.device).long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), last][:, None]
+
+
+def scatter_rows(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
+                 valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Write vals (B, T, ...) into buf (B, S, ...) at per-token rows slot
+    (B, T), IN PLACE, and return buf.  A row's slots are consecutive
+    positions pos + i >= 0 (or their ring rows, each < S).  Writes past S
+    and those of tokens that ``valid`` (B, T) masks out are dropped: they
+    write back the row's old values.  A token past index S lies past S, so
+    the chunk is cut to S tokens, and the rows slot % S of a row are then
+    unique: one ``index_put_`` of fixed shape, deterministic without
+    ``accumulate``, with no host sync and no second cache-sized buffer."""
+    S = buf.shape[1]
+    slot, vals = slot[:, :S], vals[:, :S]
+    keep = slot < S
+    if valid is not None:
+        keep = keep & valid[:, :S]
+    at = (torch.arange(slot.shape[0], device=buf.device)[:, None],
+          (slot % S).long())
+    keep = keep.reshape(keep.shape + (1,) * (vals.dim() - 2))
+    buf[at] = torch.where(keep, vals.to(buf.dtype), buf[at])
+    return buf
+
+
+def init_attn_cache(B: int, S: int, a: AttnCfg, dtype=torch.bfloat16,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Zero K and V of shape (B, S, Hkv, Dh), or (B, window, Hkv, Dh) for a
+    sliding window (a ring over positions mod window)."""
+    size = a.window if a.window else S
+    shape = (B, size, a.n_kv_heads, a.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -242,6 +313,21 @@ def _qk_normalize(tape: Tape, scope: str, path: str, p: dict, q, k,
     return rn("qn", q), rn("kn", k)
 
 
+def _attn_inputs(tape: Tape, scope: str, path: str, p: dict,
+                 x: torch.Tensor, a: AttnCfg,
+                 positions: Optional[torch.Tensor]):
+    """The layer's q, k, v projections of ``x`` (B, T, d) in heads, with
+    qk-norm where ``a`` has it and RoPE at ``positions`` (B, T) (None: no
+    RoPE): the prelude that training and decode share."""
+    q, k, v = (_project(tape, scope, path, p, nm, x, a.head_dim)
+               for nm in ("wq", "wk", "wv"))
+    q, k = _qk_normalize(tape, scope, path, p, q, k, a)
+    if a.use_rope and positions is not None:
+        q = apply_rope(q, positions, a.rope_theta)
+        k = apply_rope(k, positions, a.rope_theta)
+    return q, k, v
+
+
 def self_attention(tape: Tape, scope: str, path: str, p: dict,
                    x: torch.Tensor, a: AttnCfg, *,
                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -255,14 +341,9 @@ def self_attention(tape: Tape, scope: str, path: str, p: dict,
         raise NotImplementedError(
             f"causal attention over T={T} >= FLASH_MIN_T={FLASH_MIN_T} takes "
             f"blocked flash attention in the reference, which the port has "
-            f"not ported yet (ROADMAP queue 1, item 2)")
+            f"not ported yet (ROADMAP queue 1, item 3)")
 
-    q, k, v = (_project(tape, scope, path, p, nm, x, Dh)
-               for nm in ("wq", "wk", "wv"))
-    q, k = _qk_normalize(tape, scope, path, p, q, k, a)
-    if a.use_rope and positions is not None:
-        q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
+    q, k, v = _attn_inputs(tape, scope, path, p, x, a, positions)
     ti = torch.arange(T, device=x.device)[:, None]
     si = torch.arange(T, device=x.device)[None, :]
     if a.causal:
@@ -272,6 +353,54 @@ def self_attention(tape: Tape, scope: str, path: str, p: dict,
     else:
         mask = torch.ones(T, T, dtype=torch.bool, device=x.device)
     o = _sdpa(q.reshape(B, T, Hkv, H // Hkv, Dh), k, v, mask)
+    return L.dense(tape, f"{scope}.wo", o.reshape(B, T, H * Dh), p["wo.w"],
+                   param_path=f"{path}.wo")
+
+
+def decode_attention(tape: Tape, scope: str, path: str, p: dict,
+                     x: torch.Tensor, a: AttnCfg,
+                     cache: Dict[str, torch.Tensor], pos,
+                     valid: Optional[torch.Tensor] = None):
+    """Self attention of a decode or chunked-prefill step against the KV
+    cache, the reference's ``attention(..., cache=, pos=, valid=)``.
+
+    ``x`` (B, T, d): T == 1 decodes, T == C consumes a prefill chunk.
+    ``cache`` {'k', 'v'} (B, S, Hkv, Dh).  ``pos`` is a scalar or a (B,)
+    vector of per-slot start positions; token i of a row lands at pos + i
+    (at (pos + i) mod S in a sliding window's ring).  ``valid`` (B, T)
+    masks unconsumed chunk-tail tokens: their K/V writes are dropped and
+    their outputs are garbage the caller ignores.  Token i reads the cache
+    rows at positions <= pos + i (its own chunk's earlier tokens included,
+    written by the same scatter), and within the window for a ring.  The
+    cache is written IN PLACE (the reference returns a new one); returns
+    the (B, T, d) output."""
+    B, T, _ = x.shape
+    H, Hkv, Dh = a.n_heads, a.n_kv_heads, a.head_dim
+    if a.window and T > 1:
+        # once a slot's positions wrap the window, a later chunk token's
+        # write lands on the ring row an earlier one must still read
+        raise ValueError(
+            f"chunked prefill (T={T}) is unsupported on sliding-window "
+            f"attention (window={a.window}): in-chunk ring writes "
+            f"overwrite rows earlier chunk tokens still read once "
+            f"positions wrap; serve this arch with prefill_chunk=1")
+    posb = decode_positions(pos, B, x.device)
+    tok_pos = posb[:, None] + torch.arange(T, dtype=torch.int32,
+                                           device=x.device)       # (B, T)
+    q, k1, v1 = _attn_inputs(tape, scope, path, p, x, a, tok_pos)
+    S = cache["k"].shape[1]
+    slot = tok_pos % S if a.window else tok_pos
+    scatter_rows(cache["k"], slot, k1, valid)
+    scatter_rows(cache["v"], slot, v1, valid)
+    sl = torch.arange(S, device=x.device)[None, None, :]           # (1,1,S)
+    pc = tok_pos[:, :, None]                                        # (B,T,1)
+    if a.window:
+        orig = pc - torch.remainder(pc - sl, S)   # the ring row's position
+        mask = (orig >= 0) & (orig <= pc) & (orig > pc - a.window)
+    else:
+        mask = sl <= pc
+    o = _sdpa(q.reshape(B, T, Hkv, H // Hkv, Dh), cache["k"], cache["v"],
+              mask)
     return L.dense(tape, f"{scope}.wo", o.reshape(B, T, H * Dh), p["wo.w"],
                    param_path=f"{path}.wo")
 

@@ -1,8 +1,8 @@
 """Dense decoder-only LM as an ``nn.Module``: llama-style (deepseek-67b,
 llama3.2-3b), qwen2 (QKV bias), qwen3 (qk-norm), with optional
 sliding-window attention — the reference's ``models/transformer.py``
-``DenseLM``, training only (serving's cache, decode and prefill are not
-ported yet: ROADMAP queue 1, item 7).
+``DenseLM``: training, and serving's KV cache, ``decode_step`` and chunked
+``prefill_step``.
 
 Parameter names are the reference's ``param_path`` strings (``emb.w``,
 ``blocks.attn.wq.w``, ``blocks.mlp.w1.w``, ``lnf.w``, ``head.w``).  The
@@ -13,13 +13,23 @@ The embedding, final norm, head and loss are :class:`~.common.TokenLM`'s.
 Every parameterised op goes through a tape primitive, as in the reference:
 ``emb`` is ``embed``, each RMSNorm (and qk-norm) a ``scale``, every
 projection and the head a ``dense``.
+
+Serving takes the port's ``{path: tensor}`` parameters (as
+:meth:`~.common.TokenLM.loss` does) in place of the reference's tree, and
+the reference's cache layout ``{"blocks": {"k", "v"}}``, each (n_layers,
+B, S or window, Hkv, Dh).  Unlike the reference, which returns a new
+cache, the steps write the cache IN PLACE and return it: no copy of the
+cache per token.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..core import layers as L
 from ..core.tape import Tape, scan_blocks
 from . import common as cm
 
@@ -88,3 +98,61 @@ class DenseLM(cm.TokenLM):
         return scan_blocks(tape, "blocks", body,
                            cm.stacked_leaves(self.blocks, self._block_leaves),
                            x, self.cfg.n_layers)
+
+    # -- serving ----------------------------------------------------------
+    def init_cache(self, params: Dict[str, torch.Tensor], B: int, S: int,
+                   dtype=torch.bfloat16, **extras) -> dict:
+        """Zero K/V caches of ``B`` slots and ``S`` positions (the window
+        for a sliding window), one per layer, stacked: {"blocks": {"k",
+        "v"}} of shape (n_layers, B, S, Hkv, Dh), on the params' device."""
+        c = cm.init_attn_cache(B, S, self.acfg, dtype,
+                               device=params["emb.w"].device)
+        return {"blocks": {n: v.new_zeros((self.cfg.n_layers,) + v.shape)
+                           for n, v in c.items()}}
+
+    @torch.no_grad()
+    def _decode_core(self, params, cache, tokens, pos, valid):
+        tape = Tape()
+        x = L.embed(tape, "emb", tokens, params["emb.w"], param_path="emb.w")
+        x = x.to(self.cfg.act_dtype)
+        pos = cm.decode_positions(pos, tokens.shape[0], tokens.device)
+        # each layer reads its slice of the stacked leaves and of the cache
+        stacked = cm.sub_params(params, "blocks")
+        stacked.update({f"cache.{n}": c for n, c in cache["blocks"].items()})
+
+        def body(sub, p, x):
+            h = cm.rmsnorm(sub, "ln1", x, cm.sub_params(p, "ln1"), path="-")
+            x = x + cm.decode_attention(sub, "attn", "-",
+                                        cm.sub_params(p, "attn"), h,
+                                        self.acfg, cm.sub_params(p, "cache"),
+                                        pos, valid)
+            h = cm.rmsnorm(sub, "ln2", x, cm.sub_params(p, "ln2"), path="-")
+            return x + cm.swiglu(sub, "mlp", "-", cm.sub_params(p, "mlp"), h)
+
+        x = scan_blocks(tape, "blocks", body, stacked, x, self.cfg.n_layers)
+        return cm.rmsnorm(tape, "lnf", x, {"w": params["lnf.w"]},
+                          path="lnf"), cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos):
+        """One-token decode: tokens (B, 1) -> (logits (B, V), cache), the
+        cache written in place.  ``pos`` is a scalar (lockstep batch) or a
+        (B,) vector of per-slot positions (continuous batching)."""
+        x, cache = self._decode_core(params, cache, tokens, pos, None)
+        logits = L.dense(Tape(), "head", x, params["head.w"],
+                         param_path="head")
+        return logits[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_step(self, params, cache, tokens, pos, n_tok):
+        """Chunked prefill: consume tokens (B, C) at per-slot offsets
+        ``pos``, row i taking its first n_tok[i] tokens (0..C; the tokens
+        past n_tok leave the cache untouched).  Returns (the logits at each
+        row's last consumed token (B, V), cache), the cache written in
+        place."""
+        n_tok = torch.as_tensor(n_tok, device=tokens.device)
+        x, cache = self._decode_core(params, cache, tokens, pos,
+                                     cm.chunk_valid(tokens, n_tok))
+        logits = L.dense(Tape(), "head", cm.gather_last(x, n_tok),
+                         params["head.w"], param_path="head")
+        return logits[:, 0], cache
