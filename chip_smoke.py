@@ -195,7 +195,43 @@ Phases, in order; any failure raises and the script exits non-zero:
                1,024-row cache (tokens/s, the cache's bytes and the step's
                bound from the bytes it must move), prefill ms per chunk of
                32 at B = 4, printed with the card's name and power limit;
-               none of the four training kernels is launched.
+               none of the four training kernels is launched;
+12. serve   — ``ServeEngine.from_session`` over a full-width, full-depth
+               qwen2-0.5b session (``nonprivate``, weights from the seed),
+               8 slots of a 1,024-row bf16 cache: the mix M (18 requests,
+               prompts of 8-48 tokens, 8-24 new tokens, 16 greedy, one at
+               temperature 0.8 and top-k 5, one repeating a greedy
+               request's prompt at temperature 1.3 and top-k 1; 10
+               submitted, 12 iterations, then 8 more, admitted mid-flight
+               into reused slots), each request finishing with "length":
+               (a) three requests of M (the top-k 1 one and one greedy,
+               both admitted mid-flight, and the top-k 5 one, among the
+               first ten) alone through the same 8-slot engine, bitwise to
+               M, one of them from a slot other than 0, their logits rows
+               kept; (b) the two of (a) other than top-k 1 through a
+               one-slot engine, teacher-forced with M's tokens: every
+               logits row within ``DECODE_LOGIT_REL_TOL`` of M's largest
+               |logit|, the argmax equal wherever M's top-2 margin exceeds
+               twice that (how many positions it held is printed); (c) at
+               every position top-k 1's token among its own row's tied
+               largest logits (top-k keeps every logit tied at the k-th, as
+               in the reference, so at a tied largest bf16 logit the draw
+               may take another of them), and equal to the greedy
+               request's, the first of the largest, until a tie; (d) M
+               again through the drained engine, bitwise, with the phase
+               spans on; (e) M under static admission, bitwise; (f) a
+               raise at ``serve/mid_iteration`` retiring every request
+               with "error" and returning every slot
+               (``assert_consistent``), fresh requests then running to
+               "length", and ``cancel`` of a queued and an active request
+               freeing the slot; (g) none of the four training kernels
+               launched and the pool's probes allocating nothing.  Printed
+               with the card's name and power limit: tokens/s, iterations,
+               occupancy, TTFT p50/p95, TPOT and ms per iteration (mean,
+               p50, p95) under continuous and static admission, the phase
+               breakdown, and the scheduler's host cost per iteration read
+               two ways (ms per iteration less phase 11's decode step at
+               B = 8; the admission span plus the time outside the spans).
 
 ``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
 ``ghost_norm_dense`` check alone against the package under ``DIR/src``
@@ -213,6 +249,7 @@ checkout of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -3284,6 +3321,370 @@ def run_decode(device, smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 12: serving (ServeEngine over the slot pool, the continuous-batching
+# scheduler at one token an iteration, recovery and cancel)
+# --------------------------------------------------------------------------
+
+# full-width, full-depth qwen2-0.5b from PrivacySession.from_config (random
+# weights from the seed, bf16 activations), a pool of 8 slots of a 1,024-row
+# bf16 cache (100,663,296 B, as phase 11 reckons it)
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_SLOTS = 8
+SERVE_MAX_LEN = 1024
+# the mix M: 18 requests from a seeded numpy generator, prompts of 8-48
+# tokens and 8-24 new tokens; 10 submitted first, 12 iterations run, then
+# the other 8, so they are admitted mid-flight into reused slots
+SERVE_REQUESTS = 18
+SERVE_FIRST = 10
+SERVE_EARLY_STEPS = 12
+SERVE_PROMPT = (8, 48)
+SERVE_NEW = (8, 24)
+# request 3 samples (temperature 0.8, top-k 5, seed 11); request 12 is
+# request 1's prompt and budget at temperature 1.3, top-k 1 (seed 9)
+SERVE_SAMPLED = (3, (0.8, 5, 11))
+SERVE_TOPK1 = (12, 1, (1.3, 1, 9))
+# the recovery check's fault: the third iteration raises
+SERVE_FAULT_AT = 3
+
+
+def serve_mix(vocab: int, seed: int = 0) -> list:
+    """M as [(rid, prompt, max_new_tokens, (temperature, top_k, seed) or
+    None)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    mix = [[i, rng.integers(0, vocab, n).tolist(), int(m), None]
+           for i, (n, m) in enumerate(zip(lens, news))]
+    mix[SERVE_SAMPLED[0]][3] = SERVE_SAMPLED[1]
+    i, of, samp = SERVE_TOPK1
+    mix[i][1:] = [mix[of][1], mix[of][2], samp]
+    return [tuple(r) for r in mix]
+
+
+def serve_request(spec):
+    from repro_torch.serve import Request, SamplingParams
+    rid, prompt, max_new, samp = spec
+    sp = SamplingParams() if samp is None else SamplingParams(
+        temperature=samp[0], top_k=samp[1], seed=samp[2])
+    return Request(prompt=prompt, max_new_tokens=max_new, sampling=sp,
+                   rid=rid)
+
+
+def serve_run(engine, mix, admission="continuous"):
+    """M through ``engine`` (SERVE_FIRST requests, SERVE_EARLY_STEPS
+    iterations, the rest, then drain), each iteration timed on the host
+    clock (every iteration ends in its one device-to-host read).  Returns
+    (engine.run()'s output, which covers the drain only, with "iter_ms" and
+    "whole": the iterations, occupancy, seconds and tokens/s of all of M,
+    from its first submission; {rid: RequestState})."""
+    sch = engine.scheduler
+    ms, inner = [], sch.step
+    it0, busy0 = sch.iterations, sch.active_slot_steps
+
+    def timed():
+        t0 = time.perf_counter()
+        busy = inner()
+        if busy:
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return busy
+
+    sch.step, sch.admission = timed, admission
+    t0 = time.perf_counter()
+    try:
+        states = {s[0]: engine.submit(serve_request(s))
+                  for s in mix[:SERVE_FIRST]}
+        for _ in range(SERVE_EARLY_STEPS):
+            assert engine.step(), "M drained before its late requests"
+        states.update({s[0]: engine.submit(serve_request(s))
+                       for s in mix[SERVE_FIRST:]})
+        out = engine.run()
+    finally:
+        del sch.step
+        sch.admission = "continuous"
+    seconds = time.perf_counter() - t0
+    iters = sch.iterations - it0
+    out["iter_ms"] = ms
+    out["whole"] = {
+        "iterations": iters, "seconds": seconds,
+        "tokens_per_s": out["generated_tokens"] / seconds,
+        "occupancy": (sch.active_slot_steps - busy0) / (iters
+                                                        * engine.max_slots)}
+    return out, states
+
+
+def serve_figures(out) -> dict:
+    """tokens/s, iterations, occupancy, TTFT, TPOT and ms per iteration of
+    one run of M (all of it, the early iterations included)."""
+    import numpy as np
+    tpot = [r["tpot_s"] for r in out["results"] if r["tpot_s"] is not None]
+    ms = np.asarray(out["iter_ms"])
+    return {**out["whole"], "generated_tokens": out["generated_tokens"],
+            "ttft_p50_s": out["ttft_p50_s"], "ttft_p95_s": out["ttft_p95_s"],
+            "tpot_mean_s": float(np.mean(tpot)),
+            "iter_ms_mean": float(ms.mean()),
+            "iter_ms_p50": float(np.percentile(ms, 50)),
+            "iter_ms_p95": float(np.percentile(ms, 95))}
+
+
+@contextlib.contextmanager
+def logit_rows(engine, force=None):
+    """Keep, for each decode step of ``engine`` whose logits one request
+    alone turns into a token, that request's logits row (V,) as f32 on the
+    host.  With ``force`` (a request's generated tokens), each step after
+    the prompt consumes those tokens in place of the request's own (teacher
+    forcing)."""
+    rows, inner = [], engine.decode_fn
+
+    def decode(params, cache, tok, pos):
+        active = engine.scheduler.active.items()
+        if force is not None:
+            tok = tok.clone()
+            for slot, st in active:
+                if st.pos >= st.prompt_len:
+                    tok[slot, 0] = force[st.pos - st.prompt_len]
+        logits, cache = inner(params, cache, tok, pos)
+        for slot, st in active:
+            if st.wants_sample_at(st.pos):
+                rows.append(logits[slot].float().cpu())
+        return logits, cache
+
+    engine.decode_fn = decode
+    try:
+        yield rows
+    finally:
+        engine.decode_fn = inner
+
+
+def topk1_against_greedy(rows, greedy, topk1) -> dict:
+    """Top-k 1's tokens against the greedy request's on the same prompt;
+    ``rows`` are top-k 1's own logits rows.  At every position top-k 1's
+    token is one of its row's tied largest logits.  Up to the first position
+    where the two differ they consumed the same tokens, so the row is the
+    greedy request's too: there the greedy token is the first of the tied
+    largest (``argmax``'s first maximum, as ``jnp.argmax``), and where they
+    differ the largest is tied."""
+    assert len(rows) == len(topk1) == len(greedy), (len(rows), topk1, greedy)
+    ties, split, tied_at_split = 0, None, None
+    for t, (g, k) in enumerate(zip(greedy, topk1)):
+        tied = (rows[t] == rows[t].max()).nonzero().flatten().tolist()
+        assert k in tied, (t, k, tied)
+        ties += len(tied) > 1
+        if split is None:
+            assert g == tied[0], (t, g, tied)
+            if k != g:
+                assert len(tied) > 1, (t, k, g, tied)
+                split, tied_at_split = t, tied
+    return {"positions": len(topk1), "checked": len(rows),
+            "equal_until": len(topk1) if split is None else split,
+            "tied_positions": ties, "tied_at_divergence": tied_at_split}
+
+
+def against_one_slot(rows, solo_rows) -> dict:
+    """One slot's logits rows against M's (``rows``, from the width of M),
+    both consuming M's tokens: every row within DECODE_LOGIT_REL_TOL of
+    M's largest |logit|, and the argmax equal wherever M's top-2 margin
+    exceeds twice that."""
+    import torch
+    assert len(rows) == len(solo_rows), (len(rows), len(solo_rows))
+    ref, got = torch.stack(rows), torch.stack(solo_rows)
+    scale = ref.abs().amax(dim=-1)
+    err = float(((got - ref).abs().amax(dim=-1) / scale).max())
+    top2 = ref.topk(2, dim=-1).values
+    wide = (top2[:, 0] - top2[:, 1]) > 2 * DECODE_LOGIT_REL_TOL * scale
+    same = got.argmax(dim=-1) == ref.argmax(dim=-1)
+    res = {"positions": len(rows), "max_rel_err": err,
+           "margin_positions": int(wide.sum()),
+           "argmax_equal": int((same & wide).sum()),
+           "argmax_equal_all": int(same.sum())}
+    assert err <= DECODE_LOGIT_REL_TOL, res
+    assert res["argmax_equal"] == res["margin_positions"], res
+    return res
+
+
+def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import torch
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.obs import NULL_REGISTRY, MetricsRegistry
+    from repro_torch.resilience.faults import (FaultInjected, FaultPlan,
+                                               active)
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.cache_pool import (detect_batch_axes,
+                                              detect_pos_axes)
+    t0 = time.perf_counter()
+    zero_counts()
+    session = PrivacySession.from_config(
+        SERVE_ARCH, DPConfig(engine="nonprivate"),
+        TrainConfig(seed=0, smoke=False), device=device)
+    cfg, model, params = session.model_cfg, session.model, session.state.params
+    # (g), the probes: init_cache on meta params allocates nothing
+    before = torch.cuda.memory_allocated(device) if device.type == "cuda" \
+        else 0
+    axes = (detect_batch_axes(model, params, SERVE_MAX_LEN, torch.bfloat16),
+            detect_pos_axes(model, params, SERVE_MAX_LEN, torch.bfloat16))
+    probe_bytes = (torch.cuda.memory_allocated(device) - before
+                   if device.type == "cuda" else 0)
+    engine = ServeEngine.from_session(session, max_slots=SERVE_SLOTS,
+                                      max_len=SERVE_MAX_LEN,
+                                      cache_dtype=torch.bfloat16)
+    pool = engine.pool
+    cache_bytes = sum(c.numel() * c.element_size()
+                      for c in pool.cache["blocks"].values())
+    res = {"arch": SERVE_ARCH, "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+           "cache_bytes": cache_bytes, "probe_axes": axes,
+           "probe_allocated_bytes": probe_bytes}
+    mix = serve_mix(cfg.vocab)
+    res["mix"] = [{"rid": r, "prompt_len": len(p), "max_new_tokens": m,
+                   "sampling": s} for r, p, m, s in mix]
+    # M, continuous admission
+    out, states = serve_run(engine, mix)
+    gen = {r["rid"]: r["generated"] for r in out["results"]}
+    assert sorted(gen) == list(range(SERVE_REQUESTS)), sorted(gen)
+    assert all(r["finish_reason"] == "length" for r in out["results"]), out
+    for rid, toks in gen.items():
+        assert all(0 <= t < cfg.vocab for t in toks), rid
+    slots = {rid: st.slot for rid, st in states.items()}
+    res["continuous"] = cont = serve_figures(out)
+    res["slots_in_M"] = slots
+    log(f"[{smi}] phase 12 M continuous: {json.dumps(cont)}")
+    # (a) three requests of M alone through the same engine (8 slots, 7
+    # idle, stale rows everywhere), each with its logits rows kept: the
+    # top-k 1 request (admitted mid-flight, samples; its rows serve (c)),
+    # the request sampling at top-k 5 (among the first), and the shortest
+    # greedy one admitted mid-flight; bitwise
+    i, of, _ = SERVE_TOPK1
+    greedy = [s for s in mix if s[3] is None]
+    late = min((s for s in greedy if s[0] >= SERVE_FIRST),
+               key=lambda s: len(s[1]) + s[2])
+    picks = [mix[i], mix[SERVE_SAMPLED[0]], late]
+    alone, rows = {}, {}
+    for s in picks:
+        with logit_rows(engine) as rows[s[0]]:
+            alone[s[0]] = engine.run(
+                [serve_request(s)])["results"][0]["generated"]
+    res["alone"] = {"rids": [s[0] for s in picks],
+                    "slots_in_M": [slots[s[0]] for s in picks],
+                    "bitwise": all(alone[r] == gen[r] for r in alone)}
+    log(f"[{smi}] phase 12 (a) alone at the same width: "
+        f"{json.dumps(res['alone'])}")
+    assert res["alone"]["bitwise"], (alone, {r: gen[r] for r in alone})
+    assert any(slots[s[0]] != 0 for s in picks), res["alone"]
+    # (c) top-k 1 at temperature 1.3 against the greedy request on the same
+    # prompt: at every position a token among top-k 1's own tied largest
+    # logits (the reference's top-k keeps every logit tied at the k-th, so
+    # the draw may pick another of them), equal to greedy's until a tie
+    res["topk1"] = tk = topk1_against_greedy(rows[i], gen[of], gen[i])
+    log(f"[{smi}] phase 12 (c) top-k 1 against greedy: {json.dumps(tk)}")
+    # (b) the two shorter requests of (a) through one slot, teacher-forced
+    # with M's tokens: each logits row against M's (the rows of (a), which
+    # gave M's tokens bitwise)
+    solo = ServeEngine.from_session(session, max_slots=1,
+                                    max_len=SERVE_MAX_LEN,
+                                    cache_dtype=torch.bfloat16)
+    res["one_slot"] = []
+    for s in picks[1:]:
+        with logit_rows(solo, force=gen[s[0]]) as solo_rows:
+            solo.run([serve_request(s)])
+        res["one_slot"].append({"rid": s[0], **against_one_slot(
+            rows[s[0]], solo_rows)})
+    log(f"[{smi}] phase 12 (b) against one slot, teacher-forced: "
+        f"{json.dumps(res['one_slot'])}")
+    # (d) M again through the drained engine, every slot over stale rows,
+    # with the phase spans on
+    engine.obs = MetricsRegistry("events")
+    try:
+        again, _ = serve_run(engine, mix)
+    finally:
+        engine.obs = NULL_REGISTRY
+    res["rerun_bitwise"] = {r["rid"]: r["generated"]
+                            for r in again["results"]} == gen
+    res["phase_breakdown"] = pb = again["phase_breakdown"]
+    # the scheduler's bookkeeping outside its spans (building the vectors,
+    # the copy to the device, retiring): ms per iteration of the drain (the
+    # spans cover engine.run() alone) less the spans'
+    n = again["iterations"]
+    res["unspanned_ms_per_iter"] = (
+        sum(again["iter_ms"][-n:]) - sum(p["total_ms"] for p in pb.values())
+    ) / n
+    log(f"[{smi}] phase 12 (d) rerun bitwise: {res['rerun_bitwise']}; "
+        f"phase breakdown: {json.dumps(pb)}; ms per iteration outside "
+        f"the spans: {res['unspanned_ms_per_iter']:.3f}")
+    assert res["rerun_bitwise"]
+    # (e) static admission: M's tokens bitwise
+    out_s, _ = serve_run(engine, mix, admission="static")
+    res["static"] = stat = serve_figures(out_s)
+    stat["bitwise"] = {r["rid"]: r["generated"]
+                       for r in out_s["results"]} == gen
+    log(f"[{smi}] phase 12 (e) M static: {json.dumps(stat)}")
+    assert stat["bitwise"]
+    # (f) recovery: a raise mid-iteration retires every request with
+    # "error" and returns every slot; then fresh requests run to "length";
+    # cancel of a queued and an active request frees the slot
+    sch = engine.scheduler
+    plan = FaultPlan.single("serve/mid_iteration", action="raise",
+                            at=SERVE_FAULT_AT)
+    raised = False
+    try:
+        with active(plan):
+            engine.run([serve_request((100 + k, s[1], s[2], None))
+                        for k, s in enumerate(mix[:3])])
+    except FaultInjected:
+        raised = True
+    pool.assert_consistent()
+    rec = {"raised": raised, "free": pool.n_free,
+           "occupied": sorted(pool.occupied),
+           "finish": sorted(s.finish_reason for s in sch.finished)}
+    sch.finished = []
+    fresh = engine.run([serve_request((200 + k, s[1][:4], 2, None))
+                        for k, s in enumerate(mix[:2])])
+    rec["fresh"] = [r["finish_reason"] for r in fresh["results"]]
+    a = solo.submit(serve_request((300, mix[0][1][:4], 8, None)))
+    q = solo.submit(serve_request((301, mix[1][1][:4], 8, None)))
+    for _ in range(5):
+        solo.step()
+    rec["cancel"] = [solo.scheduler.cancel(q.rid),
+                     solo.scheduler.cancel(a.rid),
+                     q.finish_reason, a.finish_reason, len(a.generated),
+                     solo.pool.n_free]
+    solo.pool.assert_consistent()
+    res["recovery"] = rec
+    log(f"[{smi}] phase 12 (f) recovery and cancel: {json.dumps(rec)}")
+    assert raised and rec["free"] == SERVE_SLOTS and not rec["occupied"], rec
+    assert rec["finish"] == ["error"] * 3, rec
+    assert rec["fresh"] == ["length"] * 2, rec
+    assert rec["cancel"][:4] == [True, True, "cancelled", "cancelled"], rec
+    assert rec["cancel"][4] >= 1 and rec["cancel"][5] == 1, rec
+    # (g) serving launches none of the four training kernels; the probes
+    # allocated nothing
+    res["kernel_launches"] = counts = read_counts()
+    assert not any(counts.values()), counts
+    assert probe_bytes == 0, probe_bytes
+    # the scheduler's own host cost per iteration, two readings: ms per
+    # iteration less phase 11's decode step at B = 8 (timed in this run; the
+    # two differ by less than the host clock's spread between phases, so
+    # this may read below 0), and the rerun's admission span plus its time
+    # outside every span, both from the one run (what PERF.md relies on)
+    res["decode_B8_ms"] = decode_b8_ms
+    res["host_ms_per_iter"] = {k: res[k]["iter_ms_mean"] - decode_b8_ms
+                               for k in ("continuous", "static")}
+    res["scheduler_ms_per_iter"] = (res["unspanned_ms_per_iter"]
+                                    + pb["admit"]["total_ms"] / n)
+    log(f"[{smi}] phase 12 ms per iteration less phase 11's decode step at "
+        f"B = 8 ({decode_b8_ms:.2f} ms): "
+        f"{json.dumps(res['host_ms_per_iter'])}; the scheduler's own "
+        f"(admission and outside the spans): "
+        f"{res['scheduler_ms_per_iter']:.3f} ms")
+    del engine, solo, sch, session, model, params, pool
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3437,6 +3838,11 @@ def main() -> int:
     record["decode"] = dec = run_decode(device, smi)
     log(f"[{smi}] decode phase: {dec['seconds']:.1f} s")
     phase_end("11")
+    # 12. serving full-width qwen2-0.5b through ServeEngine
+    record["serve"] = srv = run_serve(
+        device, smi, dec["timed"]["decode_B8"]["ms"])
+    log(f"[{smi}] serve phase: {srv['seconds']:.1f} s")
+    phase_end("12")
     # the kernels line: launches summed over every fit() run, ViT's,
     # DenseLM's, the lifecycle's, the SSM, MoE and frontend phases' (the
     # chaos runs' own processes aside)

@@ -17,7 +17,9 @@ over ``torch.distributed`` (the ``dp`` layout of
 accumulates its rows of every physical batch, the ranks' accumulators are
 folded once per logical batch, and every rank applies the same noisy
 update.  Checkpoints under more than one rank, the ``dp_sp`` and ``2d``
-layouts and serving are not ported yet.
+layouts, serving across ranks and the session's ``serve_engine``/
+``generate`` are not ported yet (serve a session's params through
+:meth:`repro_torch.serve.ServeEngine.from_session`).
 
 Quickstart::
 

@@ -237,6 +237,12 @@ class Executor:
     def place_state(self, state):
         return state
 
+    def place_cache(self, cache, batch_size: int):
+        """A serving pool's decode cache of ``batch_size`` slots -> where
+        the decode step reads it: where ``init_cache`` made it, one
+        process."""
+        return cache
+
     def reduce(self, flat: torch.Tensor) -> torch.Tensor:
         """The flat partial sum of this rank's rows -> the logical batch's
         sum, once per logical batch, before the update."""
@@ -333,6 +339,13 @@ class MeshExecutor(Executor):
             for p in state.params.values():
                 torch.distributed.broadcast(p, src=0)
         return state
+
+    def place_cache(self, cache, batch_size: int):
+        """Serving across ranks is not ported: refuse rather than serve on
+        one rank."""
+        raise NotImplementedError(
+            "serving on a mesh is not ported yet (ROADMAP queue 1 item 5: "
+            "the cache sharded over the mesh); serve with a local executor")
 
     # -- the reduction -----------------------------------------------------
 

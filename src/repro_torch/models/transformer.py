@@ -101,7 +101,7 @@ class DenseLM(cm.TokenLM):
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, params: Dict[str, torch.Tensor], B: int, S: int,
-                   dtype=torch.bfloat16, **extras) -> dict:
+                   dtype=torch.bfloat16) -> dict:
         """Zero K/V caches of ``B`` slots and ``S`` positions (the window
         for a sliding window), one per layer, stacked: {"blocks": {"k",
         "v"}} of shape (n_layers, B, S, Hkv, Dh), on the params' device."""

@@ -41,8 +41,8 @@ from typing import Dict, List, Optional
 from .faults import (DEFAULT_EXIT_CODE, ENV_VAR,  # noqa: F401
                      KNOWN_POINTS, FaultSpec)
 
-# The training-side points the chaos matrix sweeps (the port has no
-# serving yet, so its serve/* point has no call site).
+# The training-side points the chaos matrix sweeps (serve/* points are
+# exception-path points exercised in process by tests/test_torch_serve.py).
 TRAIN_POINTS: List[str] = [p for p in sorted(KNOWN_POINTS)
                            if not p.startswith("serve/")]
 

@@ -32,8 +32,10 @@ from typing import Dict, Iterable, List, Optional
 
 # Every injectable instant, the reference's list: the chaos suite enumerates
 # it, and tests/test_torch_resilience.py holds the port's call sites to it.
-# The port has no serving yet, so "serve/mid_iteration" has no call site
-# here and stays out of the chaos matrix (TRAIN_POINTS).
+# "serve/mid_iteration" is called by the serve scheduler
+# (serve/scheduler.py) and, as in the reference, stays out of the chaos
+# matrix (TRAIN_POINTS): it is an exception-path point, exercised in
+# process by tests/test_torch_serve.py.
 KNOWN_POINTS: Dict[str, str] = {
     "ckpt/before_state":
         "save(): before any state bytes are written (nothing new on disk)",

@@ -1,5 +1,35 @@
-"""Serving in the port: so far the per-request sampler (the model's decode
-primitives are ``DenseLM.init_cache``/``decode_step``/``prefill_step``)."""
-from .sampling import sample_tokens
+"""Request-level serving in the port: continuous batching over a slot-based
+KV-cache pool, the reference's ``serve`` package on DenseLM's decode
+primitives (``DenseLM.init_cache``/``decode_step``):
 
-__all__ = ["sample_tokens"]
+  * :mod:`~repro_torch.serve.request`    — Request / SamplingParams /
+                                           RequestState
+  * :mod:`~repro_torch.serve.cache_pool` — one (max_slots, max_len) cache,
+                                           per-slot insert/evict/reset,
+                                           [B] position vector
+  * :mod:`~repro_torch.serve.sampling`   — per-request greedy/temperature/
+                                           top-k token selection
+  * :mod:`~repro_torch.serve.scheduler`  — iteration-level continuous
+                                           batching at one token an
+                                           iteration, mid-flight admission
+                                           and retirement, recovery, cancel
+  * :mod:`~repro_torch.serve.engine`     — ServeEngine.from_session: the
+                                           pool + scheduler through the
+                                           session's executor
+
+Still to come (ROADMAP queue 1): chunked prefill and the per-iteration
+token budget (item 1c); ``PrefixIndex`` and prefix sharing,
+``PrivacySession.serve_engine``/``generate``, ``launch/serve.py`` and the
+quickstart twin (1d); the other families' caches (item 2); serving on a
+mesh (item 5).
+"""
+from .cache_pool import CachePool
+from .engine import (ServeEngine, latency_percentiles, percentiles,
+                     ttft_percentiles)
+from .request import Request, RequestState, SamplingParams
+from .sampling import sample_tokens
+from .scheduler import Scheduler
+
+__all__ = ["CachePool", "ServeEngine", "Request", "RequestState",
+           "SamplingParams", "Scheduler", "latency_percentiles",
+           "percentiles", "sample_tokens", "ttft_percentiles"]

@@ -1,0 +1,232 @@
+"""Slot-based KV-cache pool: the reference's ``serve/cache_pool.py``
+without prefix sharing.
+
+The pool allocates the model's decode cache ONCE at ``(max_slots, max_len)``
+through ``model.init_cache`` and the executor's ``place_cache``, then serves
+requests out of its batch rows ("slots") without ever reallocating:
+
+  * :meth:`CachePool.insert` — claim a free slot for a new request,
+  * :meth:`CachePool.reset`  — make the claimed slots safe for their new
+    occupant: leaves without a position axis (a sliding window's ring) are
+    restored to the template; position-indexed KV rows need nothing
+    (stale entries are masked dead: reads stop at the new occupant's own
+    write position),
+  * :meth:`CachePool.evict`  — return a finished request's slot to the
+    free list.
+
+Per-slot write positions live in the host-side ``positions`` vector (one
+int32 per slot), synced from the scheduler's request states each iteration.
+
+The batch and position axes of every cache leaf are found structurally:
+``init_cache`` is probed at two batch sizes and at two lengths, and the axis
+that changes is the one sought.  A probe calls ``init_cache`` with the
+params on PyTorch's ``meta`` device (the reference's ``jax.eval_shape``), so
+it allocates nothing.  The leaves are flattened in sorted-key order, the
+reference's ``jax.tree.leaves`` order.
+
+The decode step writes the cache IN PLACE, which is the port's form of the
+donation the reference guards its template against: the template's leaves
+are clones.  ``prefix_index`` is ``None`` and there is no ``share_prefix``
+until prefix sharing is ported (ROADMAP queue 1 item 1d);
+``supports_prefix_sharing`` is computed as the reference computes it.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.params import flatten_tree
+
+
+def _leaves(cache) -> List[torch.Tensor]:
+    """The cache's leaves in sorted-key order (``jax.tree.leaves``')."""
+    return list(flatten_tree(cache).values())
+
+
+def _probe_cache_shapes(model, params, n_slots: int, max_len: int,
+                        dtype) -> List[torch.Size]:
+    """init_cache's leaf shapes at batch size ``n_slots``, computed on the
+    ``meta`` device (no allocation)."""
+    meta = {k: torch.empty_like(p, device="meta") for k, p in params.items()}
+    cache = model.init_cache(meta, n_slots, max_len, dtype=dtype)
+    return [leaf.shape for leaf in _leaves(cache)]
+
+
+def detect_batch_axes(model, params, max_len: int, dtype):
+    """Per-leaf batch axis of the decode cache, found by probing init_cache
+    at two batch sizes and diffing the shapes.  Returns a flat list in
+    :func:`_leaves` order."""
+    s2 = _probe_cache_shapes(model, params, 2, max_len, dtype)
+    s3 = _probe_cache_shapes(model, params, 3, max_len, dtype)
+    axes: List[int] = []
+    for a, b in zip(s2, s3):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if len(diff) != 1:
+            raise ValueError(
+                f"cache leaf {tuple(a)} has no unique batch axis (diff vs "
+                f"{tuple(b)}: {diff}); the slot pool needs per-slot rows in "
+                f"every cache leaf")
+        axes.append(diff[0])
+    return axes
+
+
+def detect_pos_axes(model, params, max_len: int, dtype):
+    """Per-leaf cache-position axis, or None for leaves that are not
+    position-indexed (a sliding window's ring: its shape does not change
+    with ``max_len``).  Found by probing init_cache at ``max_len`` and
+    ``max_len + 1``; flat list in :func:`_leaves` order."""
+    sa = _probe_cache_shapes(model, params, 2, max_len, dtype)
+    sb = _probe_cache_shapes(model, params, 2, max_len + 1, dtype)
+    axes: List[Optional[int]] = []
+    for a, b in zip(sa, sb):
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        axes.append(diff[0] if len(diff) == 1 else None)
+    return axes
+
+
+class CachePool:
+    """A fixed pool of ``max_slots`` independent decode-cache rows."""
+
+    def __init__(self, model, params, max_slots: int, max_len: int, *,
+                 executor=None, dtype=torch.float32):
+        if executor is None:
+            from ..launch.executor import build_executor
+            executor = build_executor(None)
+        self.max_slots = int(max_slots)
+        self.max_len = int(max_len)
+        self._batch_axes = detect_batch_axes(model, params, max_len, dtype)
+        self._pos_axes = detect_pos_axes(model, params, max_len, dtype)
+        # leaves WITHOUT a position axis need a template restore on slot
+        # reuse (a ring's rows are reused modulo the window); position-
+        # indexed KV leaves do not: decode writes position pos and attention
+        # masks reads to <= pos, so every visible entry was written by the
+        # slot's current occupant and stale rows are dead by construction
+        self._needs_reset = [ax is None for ax in self._pos_axes]
+        cache = model.init_cache(params, self.max_slots, self.max_len,
+                                 dtype=dtype)
+        self.cache = executor.place_cache(cache, self.max_slots)
+        # the template holds each slot's pristine row; only the needs-reset
+        # leaves are kept (no second cache's worth of KV).  They are clones:
+        # the decode step writes the cache in place
+        self._template_leaves = [
+            leaf.clone() for leaf, need in
+            zip(_leaves(self.cache), self._needs_reset) if need]
+        self.positions = np.zeros(self.max_slots, np.int32)
+        self._free: List[int] = list(range(self.max_slots))
+        # only position-masked-KV pools could share a prefix: an
+        # accumulating leaf at a resident's CURRENT depth is not the state
+        # at the prefix depth
+        self.supports_prefix_sharing = all(
+            ax is not None for ax in self._pos_axes)
+        self.prefix_index = None
+        self._refcount = np.zeros(self.max_slots, np.int64)
+        self._pending_free: set = set()
+
+    # -- slot lifecycle -----------------------------------------------------
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def insert(self) -> Optional[int]:
+        """Claim a free slot (lowest index first); None when full.  The
+        caller must :meth:`reset` the slot before decoding into it."""
+        if not self._free:
+            return None
+        self._free.sort()
+        slot = self._free.pop(0)
+        self.positions[slot] = 0
+        return slot
+
+    def evict(self, slot: int) -> None:
+        """Return a slot to the free list (its stale rows are cleared by the
+        reset that precedes the next insert).  A pinned slot is parked
+        instead, and freed when the last pin drops."""
+        if slot in self._free or slot in self._pending_free:
+            raise ValueError(f"slot {slot} is already free")
+        self.positions[slot] = 0
+        if self._refcount[slot] > 0:
+            self._pending_free.add(slot)
+        else:
+            self._free.append(slot)
+
+    def pin(self, slot: int) -> None:
+        """Hold ``slot``'s rows live across an evict (the contract a prefix
+        copy from a resident slot builds on)."""
+        self._refcount[slot] += 1
+
+    def unpin(self, slot: int) -> None:
+        self._refcount[slot] -= 1
+        if self._refcount[slot] < 0:
+            raise ValueError(f"slot {slot} unpinned more than pinned")
+        if self._refcount[slot] == 0 and slot in self._pending_free:
+            self._pending_free.discard(slot)
+            self._free.append(slot)
+
+    def assert_consistent(self) -> None:
+        """Structural invariants of the slot lifecycle; raises AssertionError
+        naming the violation.  The scheduler's exception recovery calls it
+        to prove a mid-iteration failure left no leaked slot or negative
+        refcount behind."""
+        every = set(range(self.max_slots))
+        free = set(self._free)
+        assert len(free) == len(self._free), \
+            f"duplicate slots in free list: {sorted(self._free)}"
+        assert free <= every, f"free list out of range: {sorted(free - every)}"
+        assert self._pending_free <= every, \
+            f"pending-free out of range: {sorted(self._pending_free - every)}"
+        assert not free & self._pending_free, \
+            f"slots both free and pending-free: " \
+            f"{sorted(free & self._pending_free)}"
+        bad_ref = [s for s in range(self.max_slots) if self._refcount[s] < 0]
+        assert not bad_ref, f"negative refcounts on slots {bad_ref}"
+        for s in sorted(free):
+            assert self._refcount[s] == 0, \
+                f"free slot {s} still pinned (refcount {self._refcount[s]})"
+            assert self.positions[s] == 0, \
+                f"free slot {s} has nonzero position {self.positions[s]}"
+        for s in sorted(self._pending_free):
+            assert self._refcount[s] > 0, \
+                f"slot {s} parked pending-free without a pin"
+            assert self.positions[s] == 0, \
+                f"pending-free slot {s} has nonzero position " \
+                f"{self.positions[s]}"
+
+    @property
+    def occupied(self) -> set:
+        """Slots neither free nor parked pending-free: each should be owned
+        by exactly one active request (the scheduler reconciles strays)."""
+        return (set(range(self.max_slots)) - set(self._free)
+                - self._pending_free)
+
+    def reset(self, slots: Sequence[int]) -> None:
+        """Make ``slots`` safe for a new occupant: every needs-reset leaf
+        takes the template's rows at the slots, one fixed-shape masked
+        select per leaf (the mask goes to the device once a call; no host
+        sync).  Position-masked KV rows are left as they are: their stale
+        entries are unreachable, so a pure-KV pool resets for free."""
+        if not len(slots):
+            return
+        for s in slots:
+            self.positions[s] = 0
+        if not self._template_leaves:
+            return
+        mask = np.zeros(self.max_slots, bool)
+        mask[list(slots)] = True
+        dev = self._template_leaves[0].device
+        self.cache = self._reset_fn(self.cache, self._template_leaves,
+                                    torch.from_numpy(mask).to(dev))
+
+    def _reset_fn(self, cache, template_leaves, mask):
+        """Write the template's rows where ``mask`` (max_slots,) is set into
+        the needs-reset leaves, in place; returns the cache."""
+        tmpl = iter(template_leaves)
+        for c, ax, need in zip(_leaves(cache), self._batch_axes,
+                               self._needs_reset):
+            if need:
+                shape = [1] * c.dim()
+                shape[ax] = self.max_slots
+                c.copy_(torch.where(mask.reshape(shape), next(tmpl), c))
+        return cache

@@ -1,0 +1,303 @@
+"""Continuous-batching scheduler (Orca-style iteration-level scheduling):
+the reference's ``serve/scheduler.py`` at one token an iteration.
+
+One scheduler iteration = one fused step over ALL pool slots:
+
+  1. **admit** — queued requests claim free slots; their rows are reset in
+     one batched select (no reallocation),
+  2. **consume** — build per-slot token/position vectors on the host:
+     decoding slots feed the token they sampled last step, prefilling slots
+     their next prompt token; the vectors go to the params' device in one
+     copy and one ``decode_step`` runs for the whole pool,
+  3. **select** — one sampling call picks every row's next token (an
+     all-greedy iteration takes the argmax alone), read back to the host in
+     the iteration's one device-to-host copy; rows that consumed their
+     final prompt position append it to their output,
+  4. **retire** — requests that hit ``max_new_tokens`` (or the cache
+     capacity) finish MID-FLIGHT: their slot frees immediately and a queued
+     request can be admitted next iteration while the rest of the batch
+     keeps decoding.
+
+Prefill runs through the same decode step, one token per iteration.  Each
+request's tokens depend only on its own prompt, sampling params and
+positions, never on batch composition or admission time.  Chunked prefill
+and the per-iteration token budget are not ported yet (ROADMAP queue 1
+item 1c), nor is prefix sharing (1d): ``prefix_hits`` and
+``prefix_tokens_shared`` stay 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..obs import NULL_REGISTRY
+from ..resilience.faults import fault_point
+from .request import (DECODE, FINISH_CANCELLED, FINISH_ERROR, FINISH_LENGTH,
+                      FINISH_MAX_LEN, PREFILL, QUEUED, Request, RequestState)
+
+
+class Scheduler:
+    """Iteration-level scheduler over a :class:`~repro_torch.serve.ServeEngine`'s
+    cache pool and decode/sample steps."""
+
+    def __init__(self, engine, admission: str = "continuous"):
+        if admission not in ("continuous", "static"):
+            raise ValueError(f"admission must be 'continuous' or 'static', "
+                             f"got {admission!r}")
+        self.engine = engine
+        self.admission = admission
+        self.queue: deque = deque()
+        self.active: Dict[int, RequestState] = {}   # slot -> state
+        self.finished: List[RequestState] = []
+        self.iterations = 0
+        self.active_slot_steps = 0      # occupancy numerator
+        self.tokens_consumed = 0
+        self.prefix_hits = 0            # admissions that matched a prefix
+        self.prefix_tokens_shared = 0   # prompt tokens skipped via sharing
+        self.prompt_tokens_admitted = 0
+        self._next_rid = 0
+
+    @property
+    def obs(self):
+        """The engine's metrics registry (re-read each use, so a registry
+        swapped onto the engine takes effect without rebuilding the
+        scheduler)."""
+        return getattr(self.engine, "obs", NULL_REGISTRY)
+
+    # -- submission ---------------------------------------------------------
+
+    def submit(self, request: Request) -> RequestState:
+        if request.prompt_len >= self.engine.max_len:
+            raise ValueError(
+                f"prompt_len={request.prompt_len} leaves no room to generate "
+                f"in a max_len={self.engine.max_len} cache")
+        if request.rid is None:
+            request = dataclasses.replace(request, rid=self._next_rid)
+        self._next_rid = max(self._next_rid, (request.rid or 0)) + 1
+        state = RequestState(request)
+        self.queue.append(state)
+        return state
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue) + len(self.active)
+
+    # -- one iteration ------------------------------------------------------
+
+    def _admit(self) -> None:
+        pool = self.engine.pool
+        if not self.queue:
+            return      # steady state: nothing to admit
+        if self.admission == "static" and self.active:
+            return      # static batching: drain the whole group first
+        newly: List[int] = []
+        now = time.time()
+        for _ in range(len(self.queue)):
+            if not pool.n_free:
+                break
+            state = self.queue.popleft()
+            slot = pool.insert()
+            try:
+                state.slot = slot
+                state.admitted_at = now
+                self.prompt_tokens_admitted += state.prompt_len
+                state.pos = 0
+                state.status = PREFILL
+                self.active[slot] = state
+                newly.append(slot)
+            except Exception:
+                # a failed admission must neither leak the claimed slot nor
+                # drop the request: the slot goes back to the pool and the
+                # request back to the FRONT of the queue, then the error
+                # propagates
+                self.active.pop(slot, None)
+                try:
+                    pool.evict(slot)
+                except ValueError:
+                    pass                    # evict itself was what failed
+                state.slot = None
+                state.pos = 0
+                state.admitted_at = None
+                state.status = QUEUED
+                self.queue.appendleft(state)
+                raise
+        pool.reset(newly)
+
+    def step(self) -> bool:
+        """Run one scheduler iteration; False when there is nothing to do.
+
+        Exception safe: if the iteration body raises mid-flight (a launch
+        failure, an injected fault), :meth:`_recover` retires every
+        in-flight request with ``FINISH_ERROR``, returns their slots to the
+        pool and reconciles any slot nobody owns; then the error
+        propagates.  The pool is left consistent
+        (:meth:`~repro_torch.serve.cache_pool.CachePool.assert_consistent`),
+        so a caller that catches the error can keep submitting."""
+        obs = self.obs
+        obs.tick()
+        with obs.span("serve/admit"):
+            self._admit()
+        if not self.active:
+            return False
+        try:
+            return self._step_active(obs)
+        except Exception:
+            self._recover()
+            raise
+
+    def _step_active(self, obs) -> bool:
+        pool = self.engine.pool
+        B = pool.max_slots
+        # every active slot consumes one token: its next prompt token while
+        # prefilling, else the token it sampled last step.  Rows of the one
+        # host vector (one copy to the device): tokens, positions, seeds,
+        # top-k, and the temperatures' f32 bits
+        host = np.zeros((5, B), np.int32)
+        temps = np.zeros(B, np.float32)
+        for slot, st in self.active.items():
+            host[0, slot] = (st.prompt[st.pos] if st.pos < st.prompt_len
+                             else st.generated[-1])
+            host[1, slot] = st.pos
+            sp = st.request.sampling
+            host[2, slot] = sp.seed
+            host[3, slot] = sp.top_k
+            temps[slot] = sp.temperature
+        host[4] = temps.view(np.int32)
+        # RequestState.pos is the single source of truth; the pool's [B]
+        # vector is synced here, the one place it is consumed
+        pool.positions[:] = host[1]
+        dev = self.engine.device
+        vec = torch.from_numpy(host).to(dev)
+        tok, pos = vec[0], vec[1]
+
+        with obs.span("serve/decode") as sp:
+            logits, pool.cache = self.engine.decode_fn(
+                self.engine.params, pool.cache, tok[:, None], pos)
+            sp.watch(logits)
+        with obs.span("serve/sample") as sp:
+            if temps.any():
+                tok_dev = self.engine.sample_fn(logits, pos, vec[2],
+                                                vec[4].view(torch.float32),
+                                                vec[3])
+            else:
+                tok_dev = self.engine.greedy_fn(logits)
+            sp.watch(tok_dev)
+        # the one device-to-host read the iteration REQUIRES (the scheduler
+        # needs the sampled ids to build the next iteration's vectors)
+        with obs.span("serve/host_sync"):
+            next_tok = tok_dev.cpu().numpy()
+        # step launched + sampled, retirement bookkeeping not yet done: the
+        # window where an exception would leak slots without _recover()
+        fault_point("serve/mid_iteration")
+
+        n_active = len(self.active)
+        self.iterations += 1
+        self.active_slot_steps += n_active
+        self.tokens_consumed += n_active
+        obs.inc("serve/iterations")
+        obs.inc("serve/tokens", n_active)
+
+        now = time.time()
+        for slot, st in list(self.active.items()):
+            if st.wants_sample_at(st.pos):
+                st.generated.append(int(next_tok[slot]))
+                if st.first_token_at is None:
+                    st.first_token_at = now
+            st.pos += 1
+            st.status = PREFILL if st.pos < st.prompt_len else DECODE
+            if len(st.generated) >= st.request.max_new_tokens:
+                st.finish(FINISH_LENGTH)
+            elif st.pos >= self.engine.max_len:
+                st.finish(FINISH_MAX_LEN)
+            if st.finished_at is not None:
+                # retire mid-flight: the slot frees NOW; a queued request
+                # takes it next iteration while the rest keep decoding
+                del self.active[slot]
+                pool.evict(slot)
+                self.finished.append(st)
+                self._record_request(st)
+        return True
+
+    def _recover(self) -> None:
+        """Exception recovery: no slot may stay occupied by a dead request.
+
+        Every in-flight request is finished with ``FINISH_ERROR`` (its
+        partial output is kept on the state) and its slot evicted: after a
+        failed step the cache rows are suspect, so resuming the request in
+        place could decode from half-written KV.  Slots the pool still
+        thinks are occupied but no request owns are reconciled too.  Ends by
+        asserting pool consistency, so recovery itself can never leak."""
+        pool = self.engine.pool
+        for slot, st in list(self.active.items()):
+            del self.active[slot]
+            try:
+                pool.evict(slot)
+            except ValueError:
+                pass            # eviction already happened before the raise
+            st.finish(FINISH_ERROR)
+            self.finished.append(st)
+            self._record_request(st)
+        for slot in sorted(pool.occupied):      # ownerless strays
+            pool.evict(slot)
+        self.obs.inc("serve/recoveries")
+        pool.assert_consistent()
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by rid: a queued request is removed before it
+        ever claims a slot; an in-flight one is retired (slot evicted and
+        reusable NEXT iteration, partial output kept).  Returns False when
+        the rid is unknown or already finished."""
+        for st in list(self.queue):
+            if st.rid == rid:
+                self.queue.remove(st)
+                st.finish(FINISH_CANCELLED)
+                self.finished.append(st)
+                self._record_request(st)
+                return True
+        for slot, st in list(self.active.items()):
+            if st.rid == rid:
+                del self.active[slot]
+                self.engine.pool.evict(slot)
+                st.finish(FINISH_CANCELLED)
+                self.finished.append(st)
+                self._record_request(st)
+                return True
+        return False
+
+    def _record_request(self, st: RequestState) -> None:
+        """Per-request lifecycle telemetry at retirement: queue wait, TTFT,
+        TPOT, all host timestamps, no device reads."""
+        obs = self.obs
+        if not obs.enabled:
+            return
+        obs.inc("serve/requests_finished")
+        for name, val in (("serve/queue", st.queue_time()),
+                          ("serve/ttft", st.ttft()),
+                          ("serve/tpot", st.tpot())):
+            if val is not None:
+                obs.observe(name, float(val))
+        obs.event("request", rid=st.rid, prompt_len=st.prompt_len,
+                  generated=len(st.generated),
+                  finish_reason=st.finish_reason,
+                  queue_s=st.queue_time(), ttft_s=st.ttft(),
+                  tpot_s=st.tpot(), latency_s=st.latency(),
+                  prefix_tokens=st.prefix_tokens)
+
+    # -- drain --------------------------------------------------------------
+
+    def run(self, max_iterations: Optional[int] = None) -> List[RequestState]:
+        """Step until every submitted request has finished; returns the
+        finished states in completion order."""
+        it = 0
+        while self.queue or self.active:
+            if not self.step():
+                break
+            it += 1
+            if max_iterations is not None and it >= max_iterations:
+                break
+        return self.finished
