@@ -203,7 +203,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                temperature 0.8 and top-k 5, one repeating a greedy
                request's prompt at temperature 1.3 and top-k 1; 10
                submitted, 12 iterations, then 8 more, admitted mid-flight
-               into reused slots), each request finishing with "length":
+               into reused slots), each request finishing with "length",
+               its only host syncs the scheduler's two an iteration (the
+               copy of its host array to the card and the read of the
+               sampled ids, counted by line under CUDA's sync debug mode):
                (a) three requests of M (the top-k 1 one and one greedy,
                both admitted mid-flight, and the top-k 5 one, among the
                first ten) alone through the same 8-slot engine, bitwise to
@@ -232,6 +235,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                breakdown, and the scheduler's host cost per iteration read
                two ways (ms per iteration less phase 11's decode step at
                B = 8; the admission span plus the time outside the spans).
+               Then a second engine on the same session and weights (8
+               slots, 1,024 rows, bf16 cache, ``prefill_chunk=32``,
+               ``token_budget=64``): (h) M through it, every request ending
+               with "length" at its ``max_new_tokens``, in
+               ``SERVE_CHUNK_ITERATIONS`` iterations (the CPU rehearsal's
+               count: the schedule depends on the lengths alone), printed
+               beside M's one-token figures (both runs under the same
+               trace, which reads nothing from the card while an iteration
+               is timed), ms per iteration split into chunk and decode
+               iterations, the same two syncs an iteration as M; (j) each
+               of M's 18 first-token logits rows, from the chunk iteration
+               that consumed its last prompt token, against (d)'s from a
+               one-token decode step (``serve_trace``, the one wrapper of
+               ``decode_fn`` and ``prefill_fn`` that every check uses),
+               within ``DECODE_LOGIT_REL_TOL`` of the row's largest |logit|,
+               the argmax equal wherever (d)'s top-2 margin exceeds twice
+               that; (i) M again through the drained chunk engine with the
+               spans on, tokens and first-token rows bitwise; (k) 6 of M's
+               requests, 2 iterations, then two greedy prompts of 5/16 and
+               11/16 of the rows (320 and 704 tokens) with 16 new tokens:
+               in every iteration ``n_tok.sum()`` at most ``max(budget,
+               decoders)`` and each decoder exactly 1, both long prompts'
+               first-token rows within ``DECODE_LOGIT_REL_TOL`` of
+               ``logits()`` at their last prompt position, both ending with
+               "length"; (l) in the first chunk iteration of (k) with a
+               stalled row (``n_tok == 0``), that slot's and a free slot's
+               K/V rows bitwise unchanged; (m) (g) holds for all of it.
 
 ``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
 ``ghost_norm_dense`` check alone against the package under ``DIR/src``
@@ -249,6 +279,7 @@ checkout of the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -256,6 +287,8 @@ import math
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3346,6 +3379,20 @@ SERVE_SAMPLED = (3, (0.8, 5, 11))
 SERVE_TOPK1 = (12, 1, (1.3, 1, 9))
 # the recovery check's fault: the third iteration raises
 SERVE_FAULT_AT = 3
+# (h)-(l): a second engine on the same session and weights, prefilling in
+# chunks of 32 under a budget of 64 tokens an iteration.  M's iterations
+# through it (the 12 before the late submissions included), as the CPU
+# rehearsal counts them: every request ends on its length, so the schedule
+# depends on the lengths alone
+SERVE_CHUNK = 32
+SERVE_BUDGET = 64
+SERVE_CHUNK_ITERATIONS = 47
+# (k): 6 of M's requests, 2 iterations, then two greedy prompts of 5/16 and
+# 11/16 of the cache's rows (320 and 704 at 1,024) with 16 new tokens each
+SERVE_LONG_FIRST = 6
+SERVE_LONG_STEPS = 2
+SERVE_LONG_SHARES = (5, 11)
+SERVE_LONG_NEW = 16
 
 
 def serve_mix(vocab: int, seed: int = 0) -> list:
@@ -3428,33 +3475,164 @@ def serve_figures(out) -> dict:
             "iter_ms_p95": float(np.percentile(ms, 95))}
 
 
+def consume_counts(sch) -> list:
+    """The consume counts of ``sch``'s next step, from its host state alone
+    (the reference's rule: a decoder takes 1, prefilling slots in slot
+    order take min(C, prompt left, budget left)), so that a trace reads
+    nothing back from the device while an iteration is timed."""
+    C, budget = sch.engine.prefill_chunk, sch.token_budget
+    n = [0] * sch.engine.pool.max_slots
+    pre = sorted(s for s, st in sch.active.items() if st.pos < st.prompt_len)
+    for slot in set(sch.active) - set(pre):
+        n[slot] = 1
+    left = None if budget is None else max(budget - sum(n), 0)
+    for slot in pre:
+        st = sch.active[slot]
+        n[slot] = min(C, st.prompt_len - st.pos)
+        if left is not None:
+            n[slot] = min(n[slot], left)
+            left -= n[slot]
+    return n
+
+
 @contextlib.contextmanager
-def logit_rows(engine, force=None):
-    """Keep, for each decode step of ``engine`` whose logits one request
-    alone turns into a token, that request's logits row (V,) as f32 on the
-    host.  With ``force`` (a request's generated tokens), each step after
-    the prompt consumes those tokens in place of the request's own (teacher
-    forcing)."""
-    rows, inner = [], engine.decode_fn
+def serve_trace(engine, rows=False, force=None, hold_stall=False,
+                syncs=False):
+    """Record each step of ``engine`` as the scheduler launched it: its
+    path ("chunk" or "decode"), the consume counts ``n_tok`` (from
+    ``consume_counts``, held after the run against the counts the chunk
+    steps were given on the device) and the decoding slots; and each
+    request's first-token logits row, by rid (f32, left on the device until
+    the run ends).  With ``rows``, every logits row from which a request
+    draws a token, by rid.  ``force`` {rid: tokens} feeds a request those
+    tokens after its prompt in place of its own (teacher forcing).  With
+    ``hold_stall``, the first chunk step in which an active slot consumes
+    nothing holds that slot's K/V rows and a free slot's bitwise through
+    the step.  With ``syncs``, on a card, CUDA's sync debug mode warns at
+    every host sync of the run and ``tr["syncs"]`` counts them by the line
+    that made them ({"file:line": n}; None off the card)."""
+    import torch
+    sch, pool = engine.scheduler, engine.pool
+    inner = engine.decode_fn, engine.prefill_fn
+    tr = {"path": [], "n_tok": [], "decoding": [], "first": {}, "rows": {},
+          "stall": None, "syncs": None}
+    given = []          # the chunk steps' n_tok, on the device
+
+    def note(path, n, logits):
+        act = sch.active
+        tr["path"].append(path)
+        tr["n_tok"].append(n)
+        tr["decoding"].append(sorted(slot for slot, st in act.items()
+                                     if st.pos >= st.prompt_len))
+        for slot, st in act.items():
+            if not (n[slot] and st.wants_sample_at(st.pos + n[slot] - 1)):
+                continue
+            row = logits[slot].float().clone()
+            if not st.generated:
+                tr["first"][st.rid] = row
+            if rows:
+                tr["rows"].setdefault(st.rid, []).append(row)
+
+    def forced(tok):
+        if not force:
+            return tok
+        tok = tok.clone()
+        for slot, st in sch.active.items():
+            if st.rid in force and st.pos >= st.prompt_len:
+                tok[slot, 0] = force[st.rid][st.pos - st.prompt_len]
+        return tok
 
     def decode(params, cache, tok, pos):
-        active = engine.scheduler.active.items()
-        if force is not None:
-            tok = tok.clone()
-            for slot, st in active:
-                if st.pos >= st.prompt_len:
-                    tok[slot, 0] = force[st.pos - st.prompt_len]
-        logits, cache = inner(params, cache, tok, pos)
-        for slot, st in active:
-            if st.wants_sample_at(st.pos):
-                rows.append(logits[slot].float().cpu())
+        n = consume_counts(sch)
+        logits, cache = inner[0](params, cache, forced(tok), pos)
+        note("decode", n, logits)
         return logits, cache
 
+    def prefill(params, cache, tok, pos, n_tok):
+        n = consume_counts(sch)
+        given.append(n_tok)
+        held = None
+        if hold_stall and tr["stall"] is None:
+            stalled = [slot for slot in sch.active if not n[slot]]
+            free = [slot for slot in range(len(n)) if slot not in sch.active]
+            if stalled:
+                held = {"iteration": len(tr["path"]), "n_tok": n,
+                        "stalled": stalled[0],
+                        "free": free[0] if free else None}
+                before = {(k, slot): c[:, slot].clone()
+                          for k, c in pool.cache["blocks"].items()
+                          for slot in (held["stalled"], held["free"])
+                          if slot is not None}
+        logits, cache = inner[1](params, cache, forced(tok), pos, n_tok)
+        if held is not None:
+            held["bitwise"] = {f"{k}{slot}": same_bits(
+                cache["blocks"][k][:, slot], v)
+                for (k, slot), v in before.items()}
+            tr["stall"] = held
+        note("chunk", n, logits)
+        return logits, cache
+
+    count = syncs and engine.device.type == "cuda"
+    found, stacks = collections.Counter(), {}
+
+    def seen(message, category, filename, lineno, *rest):
+        # the mode itself warns that it is a prototype: passed on
+        if not str(message).startswith("called a synchronizing"):
+            return shown(message, category, filename, lineno, *rest)
+        at = f"{'/'.join(Path(filename).parts[-2:])}:{lineno}"
+        found[at] += 1
+        stacks.setdefault(at, traceback.format_stack(limit=10)[:-1])
+
     engine.decode_fn = decode
-    try:
-        yield rows
-    finally:
-        engine.decode_fn = inner
+    if inner[1] is not None:
+        engine.prefill_fn = prefill
+    with warnings.catch_warnings():
+        if count:
+            shown, warnings.showwarning = warnings.showwarning, seen
+            warnings.simplefilter("always")
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield tr
+        finally:
+            if count:
+                torch.cuda.set_sync_debug_mode(mode)
+            engine.decode_fn, engine.prefill_fn = inner
+    if count:
+        tr["syncs"], tr["sync_stacks"] = dict(found), stacks
+    chunk_n = [n for n, path in zip(tr["n_tok"], tr["path"])
+               if path == "chunk"]
+    assert [g.tolist() for g in given] == chunk_n, (given, chunk_n)
+    tr["first"] = {rid: row.cpu() for rid, row in tr["first"].items()}
+    tr["rows"] = {rid: [row.cpu() for row in r]
+                  for rid, r in tr["rows"].items()}
+
+
+def assert_two_syncs(tr, iterations) -> None:
+    """A run's host syncs (``serve_trace(..., syncs=True)``) are the
+    scheduler's two an iteration, the copy of its host array to the device
+    and the read of the sampled ids, and no other (no check off the
+    card)."""
+    got = tr["syncs"]
+    if got is None:
+        return
+    assert (len(got) == 2
+            and all(k.startswith("serve/scheduler.py:") for k in got)
+            and set(got.values()) == {iterations}), (got, iterations,
+                                                    tr["sync_stacks"])
+
+
+def path_figures(ms, paths) -> dict:
+    """ms per iteration (mean, p50, p95) of each path's iterations."""
+    import numpy as np
+    out = {}
+    for path in ("chunk", "decode"):
+        m = np.asarray([t for t, p in zip(ms, paths) if p == path])
+        out[path] = {"iterations": len(m)} if not len(m) else {
+            "iterations": len(m), "ms_mean": float(m.mean()),
+            "ms_p50": float(np.percentile(m, 50)),
+            "ms_p95": float(np.percentile(m, 95))}
+    return out
 
 
 def topk1_against_greedy(rows, greedy, topk1) -> dict:
@@ -3539,8 +3717,11 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
     mix = serve_mix(cfg.vocab)
     res["mix"] = [{"rid": r, "prompt_len": len(p), "max_new_tokens": m,
                    "sampling": s} for r, p, m, s in mix]
-    # M, continuous admission
-    out, states = serve_run(engine, mix)
+    # M, continuous admission, traced as (h) is: the scheduler's two host
+    # syncs an iteration and no other
+    with serve_trace(engine, syncs=True) as m_tr:
+        out, states = serve_run(engine, mix)
+    assert_two_syncs(m_tr, out["whole"]["iterations"])
     gen = {r["rid"]: r["generated"] for r in out["results"]}
     assert sorted(gen) == list(range(SERVE_REQUESTS)), sorted(gen)
     assert all(r["finish_reason"] == "length" for r in out["results"]), out
@@ -3548,6 +3729,7 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
         assert all(0 <= t < cfg.vocab for t in toks), rid
     slots = {rid: st.slot for rid, st in states.items()}
     res["continuous"] = cont = serve_figures(out)
+    cont["syncs"] = m_tr["syncs"]
     res["slots_in_M"] = slots
     log(f"[{smi}] phase 12 M continuous: {json.dumps(cont)}")
     # (a) three requests of M alone through the same engine (8 slots, 7
@@ -3562,9 +3744,10 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
     picks = [mix[i], mix[SERVE_SAMPLED[0]], late]
     alone, rows = {}, {}
     for s in picks:
-        with logit_rows(engine) as rows[s[0]]:
+        with serve_trace(engine, rows=True) as tr:
             alone[s[0]] = engine.run(
                 [serve_request(s)])["results"][0]["generated"]
+        rows[s[0]] = tr["rows"][s[0]]
     res["alone"] = {"rids": [s[0] for s in picks],
                     "slots_in_M": [slots[s[0]] for s in picks],
                     "bitwise": all(alone[r] == gen[r] for r in alone)}
@@ -3586,19 +3769,21 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
                                     cache_dtype=torch.bfloat16)
     res["one_slot"] = []
     for s in picks[1:]:
-        with logit_rows(solo, force=gen[s[0]]) as solo_rows:
+        with serve_trace(solo, rows=True, force={s[0]: gen[s[0]]}) as tr:
             solo.run([serve_request(s)])
         res["one_slot"].append({"rid": s[0], **against_one_slot(
-            rows[s[0]], solo_rows)})
+            rows[s[0]], tr["rows"][s[0]])})
     log(f"[{smi}] phase 12 (b) against one slot, teacher-forced: "
         f"{json.dumps(res['one_slot'])}")
     # (d) M again through the drained engine, every slot over stale rows,
     # with the phase spans on
     engine.obs = MetricsRegistry("events")
     try:
-        again, _ = serve_run(engine, mix)
+        with serve_trace(engine) as one_tr:
+            again, _ = serve_run(engine, mix)
     finally:
         engine.obs = NULL_REGISTRY
+    res["rerun"] = serve_figures(again)
     res["rerun_bitwise"] = {r["rid"]: r["generated"]
                             for r in again["results"]} == gen
     res["phase_breakdown"] = pb = again["phase_breakdown"]
@@ -3657,6 +3842,9 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
     assert rec["fresh"] == ["length"] * 2, rec
     assert rec["cancel"][:4] == [True, True, "cancelled", "cancelled"], rec
     assert rec["cancel"][4] >= 1 and rec["cancel"][5] == 1, rec
+    del solo
+    res["chunked"] = run_serve_chunked(session, mix, gen, one_tr["first"],
+                                       smi, res)
     # (g) serving launches none of the four training kernels; the probes
     # allocated nothing
     res["kernel_launches"] = counts = read_counts()
@@ -3677,11 +3865,115 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
         f"{json.dumps(res['host_ms_per_iter'])}; the scheduler's own "
         f"(admission and outside the spans): "
         f"{res['scheduler_ms_per_iter']:.3f} ms")
-    del engine, solo, sch, session, model, params, pool
+    del engine, sch, session, model, params, pool
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def run_serve_chunked(session, mix, gen, one_rows, smi, one) -> dict:
+    """Phase 12 (h)-(l) on the session of (a)-(g): ``gen`` is M's tokens,
+    ``one_rows`` each request's first-token logits row from (d), ``one``
+    the one-token engine's record."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import NULL_REGISTRY, MetricsRegistry
+    from repro_torch.serve import Request, ServeEngine
+    t0 = time.perf_counter()
+    engine = ServeEngine.from_session(
+        session, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        cache_dtype=torch.bfloat16, prefill_chunk=SERVE_CHUNK,
+        token_budget=SERVE_BUDGET)
+    res = {"prefill_chunk": SERVE_CHUNK, "token_budget": SERVE_BUDGET}
+    # (h) M through the chunk engine, each iteration timed and traced as
+    # M's first run was: the scheduler's two host syncs an iteration
+    with serve_trace(engine, syncs=True) as tr:
+        out, _ = serve_run(engine, mix)
+    assert_two_syncs(tr, out["whole"]["iterations"])
+    got = {r["rid"]: r["generated"] for r in out["results"]}
+    assert all(r["finish_reason"] == "length" for r in out["results"]), out
+    assert {rid: len(t) for rid, t in got.items()} == {
+        s[0]: s[2] for s in mix}, got
+    res["M"] = fig = serve_figures(out)
+    fig["chunk_iterations"] = tr["path"].count("chunk")
+    fig["syncs"] = tr["syncs"]
+    fig["by_path"] = path_figures(out["iter_ms"], tr["path"])
+    fig["tokens_equal_to_one_token"] = sum(got[r] == gen[r] for r in gen)
+    log(f"[{smi}] phase 12 (h) M in chunks of {SERVE_CHUNK}, budget "
+        f"{SERVE_BUDGET}: {json.dumps(fig)}; one token an iteration, "
+        f"first run: {json.dumps(one['continuous'])}; (d): "
+        f"{json.dumps(one['rerun'])}")
+    assert fig["iterations"] == SERVE_CHUNK_ITERATIONS, fig
+    # (j) each request's first-token row: (h)'s from the chunk that
+    # consumed its last prompt token, (d)'s from a one-token decode step
+    rids = sorted(one_rows)
+    assert rids == sorted(tr["first"]) == list(range(SERVE_REQUESTS)), rids
+    res["first_rows"] = first = against_one_slot(
+        [one_rows[r] for r in rids], [tr["first"][r] for r in rids])
+    log(f"[{smi}] phase 12 (j) first-token rows, chunk against one "
+        f"token: {json.dumps(first)}")
+    # (i) M again through the drained chunk engine, the spans on: tokens
+    # and first-token rows bitwise
+    engine.obs = MetricsRegistry("events")
+    try:
+        with serve_trace(engine) as tr_i:
+            again, _ = serve_run(engine, mix)
+    finally:
+        engine.obs = NULL_REGISTRY
+    res["rerun_bitwise"] = ({r["rid"]: r["generated"]
+                             for r in again["results"]} == got
+                            and tr_i["path"] == tr["path"]
+                            and all(same_bits(tr_i["first"][r],
+                                              tr["first"][r]) for r in rids))
+    res["phase_breakdown"] = again["phase_breakdown"]
+    log(f"[{smi}] phase 12 (i) rerun bitwise: {res['rerun_bitwise']}; "
+        f"phase breakdown: {json.dumps(res['phase_breakdown'])}")
+    assert res["rerun_bitwise"]
+    # (k) long prompts under the budget behind 6 of M's requests, (l) a
+    # stalled and a free slot's rows held through a chunk step
+    rng = np.random.default_rng(1)
+    vocab = session.model_cfg.vocab
+    longs = [Request(prompt=rng.integers(0, vocab, SERVE_MAX_LEN * k // 16)
+                     .tolist(), max_new_tokens=SERVE_LONG_NEW, rid=400 + i)
+             for i, k in enumerate(SERVE_LONG_SHARES)]
+    with serve_trace(engine, hold_stall=True) as tr_k:
+        for spec in mix[:SERVE_LONG_FIRST]:
+            engine.submit(serve_request(spec))
+        for _ in range(SERVE_LONG_STEPS):
+            assert engine.step()
+        for r in longs:
+            engine.submit(r)
+        out_k = engine.run()
+    over = [(i, n, d) for i, (n, d) in enumerate(zip(tr_k["n_tok"],
+                                                     tr_k["decoding"]))
+            if sum(n) > max(SERVE_BUDGET, len(d))
+            or any(n[slot] != 1 for slot in d)]
+    with torch.no_grad():
+        full = [session.model.logits(torch.tensor(
+            [r.prompt], device=engine.device))[0, -1].float().cpu()
+            for r in longs]
+    finish = {r["rid"]: r["finish_reason"] for r in out_k["results"]}
+    res["long"] = lng = {
+        "prompt_lens": [r.prompt_len for r in longs],
+        "iterations": len(tr_k["path"]),
+        "chunk_iterations": tr_k["path"].count("chunk"),
+        "most_tokens": max(sum(n) for n in tr_k["n_tok"]),
+        "over_budget": over, "finish": finish,
+        "against_logits": against_one_slot(
+            full, [tr_k["first"][r.rid] for r in longs]),
+        "stall": tr_k["stall"]}
+    log(f"[{smi}] phase 12 (k) long prompts under the budget, (l) the "
+        f"stalled and free rows: {json.dumps(lng)}")
+    assert not over, over
+    assert all(f == "length" for f in finish.values()), finish
+    st = lng["stall"]
+    assert st is not None and st["free"] is not None, st
+    assert all(st["bitwise"].values()) and len(st["bitwise"]) == 4, st
+    del engine
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[{smi}] phase 12 (h)-(l): {res['seconds']:.1f} s")
     return res
 
 

@@ -288,8 +288,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q`` is scaled in its own dtype, both products take their operands in
     f32 (the reference's f32 ``preferred_element_type`` on bf16 inputs: a
     bf16 product is exact in f32), and the probabilities are rounded to
-    ``v``'s dtype before the second product."""
-    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
+    ``v``'s dtype before the second product.  The scale is filled on the
+    device (``torch.tensor`` would copy it from the host, a sync a layer)."""
+    scale = torch.full((), q.shape[-1] ** -0.5, dtype=q.dtype,
+                       device=q.device)
     s = torch.einsum("btkgd,bskd->bktgs", (q * scale).float(), k.float())
     m = (mask[None, None, :, None, :] if mask.dim() == 2
          else mask[:, None, :, None, :])

@@ -15,16 +15,17 @@ Build one from a session (inference spends no privacy budget)::
     state = engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=16))
     out = engine.run()          # continuous batching until the queue drains
 
-Differences from the reference: the decode step is the model's eager
-``decode_step`` (no jit; the cache is written in place), and the port has
-no activation-sharding hooks, so the reference's ``configure_model`` and
-``jit_decode`` have no counterpart.  Not ported yet: chunked prefill and
-the token budget (``prefill_chunk > 1`` and ``token_budget`` raise;
-ROADMAP queue 1 item 1c), prefix sharing (no ``prefix_sharing`` argument,
-``prefix_sharing`` is False and ``run()``'s ``prefix_*`` keys read 0; item
-1d), ``PrivacySession.serve_engine``/``generate`` and ``launch/serve.py``
-(1d), the other families' caches (item 2) and serving on a mesh
-(``MeshExecutor.place_cache`` raises; item 5).
+Differences from the reference: the decode and prefill steps are the
+model's eager ``decode_step`` and ``prefill_step`` (no jit; the cache is
+written in place), and the port has no activation-sharding hooks, so the
+reference's ``configure_model`` and ``jit_decode`` have no counterpart.
+Under ``prefill_chunk > 1`` a request's tokens are held to its solo run
+within the logit bound, not bitwise (the scheduler's docstring says why).
+Not ported yet (ROADMAP queue 1): prefix sharing (no ``prefix_sharing``
+argument, ``prefix_sharing`` is False and ``run()``'s ``prefix_*`` keys
+read 0; item 1d), ``PrivacySession.serve_engine``/``generate`` and
+``launch/serve.py`` (1d), the other families' caches (item 2) and serving
+on a mesh (``MeshExecutor.place_cache`` raises; item 5).
 """
 from __future__ import annotations
 
@@ -102,17 +103,34 @@ class ServeEngine:
         if self.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
-        if self.prefill_chunk > 1 or token_budget is not None:
-            raise NotImplementedError(
-                "chunked prefill and the token budget are not ported yet "
-                "(ROADMAP queue 1 item 1c); serve with prefill_chunk=1 and "
-                "no token_budget")
+        if self.prefill_chunk > 1 and not hasattr(model, "prefill_step"):
+            raise ValueError(
+                f"{getattr(model_cfg, 'name', model)} has no prefill_step; "
+                f"chunked prefill needs the chunk-shaped decode entry point")
+        if self.prefill_chunk > 1 and getattr(model_cfg, "sliding_window", 0):
+            # ring caches cannot take a single-scatter chunk once positions
+            # wrap the window: fail at construction, not at the first chunk
+            raise ValueError(
+                f"chunked prefill is unsupported on sliding-window archs "
+                f"({getattr(model_cfg, 'name', '?')} has window="
+                f"{model_cfg.sliding_window}); use prefill_chunk=1")
+        if token_budget is not None and self.prefill_chunk < 2:
+            # throttling can stall a slot to 0 tokens, which only the
+            # chunked entry point's valid mask can express: the plain
+            # decode step consumes 1 token per slot
+            raise ValueError("token_budget requires prefill_chunk > 1 "
+                             "(prefill-by-decode already consumes the "
+                             "minimum 1 token per slot per iteration)")
         self._cache_dtype = cache_dtype
-        # telemetry: the scheduler reads this per iteration (admit/decode/
-        # sample/host-sync spans + request lifecycle events); off by
+        # telemetry: the scheduler reads this per iteration (admit/prefill/
+        # decode/sample/host-sync spans + request lifecycle events); off by
         # default so the serving loop carries no added sync points
         self.obs = as_registry(obs)
         self.decode_fn = model.decode_step
+        # chunked prefill: one call consumes (B, C) prompt tokens at per-slot
+        # offsets; only an engine with prefill_chunk > 1 takes that path
+        self.prefill_fn = (model.prefill_step if self.prefill_chunk > 1
+                           else None)
         self.sample_fn = sample_tokens
         # all-greedy iterations skip the sampler's sort + per-row keys (the
         # scheduler picks host-side: temperatures are host values)
@@ -122,11 +140,13 @@ class ServeEngine:
         self.prefix_sharing = False
         # admission="static" gates admission on an EMPTY pool (the old
         # fixed-batch generate() discipline): the benchmark baseline
-        self.scheduler = Scheduler(self, admission=admission)
+        self.scheduler = Scheduler(self, admission=admission,
+                                   token_budget=token_budget)
 
     @classmethod
     def from_session(cls, session, *, max_slots: int = 4, max_len: int = 64,
-                     cache_dtype=torch.float32, prefill_chunk: int = 1, token_budget: Optional[int] = None,
+                     cache_dtype=torch.float32, prefill_chunk: int = 1,
+                     token_budget: Optional[int] = None,
                      obs=None) -> "ServeEngine":
         """An engine serving the session's current parameters through the
         session's executor.  The session's metrics registry is inherited

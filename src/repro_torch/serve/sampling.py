@@ -72,8 +72,9 @@ def uniform(bits: torch.Tensor) -> torch.Tensor:
     """``jax.random.uniform(key, minval=tiny, maxval=1.)`` from the key's
     ``random_bits``: f32 of the bits' shape."""
     floats = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32)
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=bits.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - tiny
+    # filled on the device: torch.tensor would copy from the host and sync
+    tiny = torch.full((), _TINY, dtype=torch.float32, device=bits.device)
+    span = torch.full((), 1.0, dtype=torch.float32, device=bits.device) - tiny
     return torch.maximum(tiny, (floats - 1.0) * span + tiny)
 
 

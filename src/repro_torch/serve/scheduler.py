@@ -1,29 +1,43 @@
 """Continuous-batching scheduler (Orca-style iteration-level scheduling):
-the reference's ``serve/scheduler.py`` at one token an iteration.
+the reference's ``serve/scheduler.py`` without prefix sharing.
 
 One scheduler iteration = one fused step over ALL pool slots:
 
   1. **admit** — queued requests claim free slots; their rows are reset in
      one batched select (no reallocation),
   2. **consume** — build per-slot token/position vectors on the host:
-     decoding slots feed the token they sampled last step, prefilling slots
-     their next prompt token; the vectors go to the params' device in one
-     copy and one ``decode_step`` runs for the whole pool,
-  3. **select** — one sampling call picks every row's next token (an
-     all-greedy iteration takes the argmax alone), read back to the host in
-     the iteration's one device-to-host copy; rows that consumed their
-     final prompt position append it to their output,
+     decoding slots feed the token they sampled last step (1 token);
+     prefilling slots feed their next ``prefill_chunk`` prompt tokens,
+     throttled by the per-iteration ``token_budget``.  The vectors go to
+     the params' device in one copy, and one ``prefill_step`` (chunked) or
+     ``decode_step`` (every active slot exactly one token) runs for the
+     whole pool,
+  3. **select** — one sampling call picks every row's next token from the
+     logits at its LAST consumed position (an all-greedy iteration takes
+     the argmax alone), read back to the host in the iteration's one
+     device-to-host copy; rows that consumed their final prompt position
+     append it to their output,
   4. **retire** — requests that hit ``max_new_tokens`` (or the cache
      capacity) finish MID-FLIGHT: their slot frees immediately and a queued
      request can be admitted next iteration while the rest of the batch
      keeps decoding.
 
-Prefill runs through the same decode step, one token per iteration.  Each
-request's tokens depend only on its own prompt, sampling params and
-positions, never on batch composition or admission time.  Chunked prefill
-and the per-iteration token budget are not ported yet (ROADMAP queue 1
-item 1c), nor is prefix sharing (1d): ``prefix_hits`` and
-``prefix_tokens_shared`` stay 0.
+With ``prefill_chunk == 1`` (the default) prefill runs through the same
+decode step, one token per iteration, and each request's tokens depend
+only on its own prompt, sampling params and positions, never on batch
+composition or admission time: a row's arithmetic at a fixed width does
+not depend on its neighbours.  With a larger chunk, a long prompt admitted
+into a running batch catches up ``C`` tokens per iteration while its
+neighbours decode.  An iteration in which some active slot consumes other
+than one token runs at width ``C``, every other at width 1, as in the
+reference; the port's GEMMs round a product of ``C`` rows unlike one of 1
+(the reference's XLA:CPU chunk path is bit-identical to per-token decode,
+the port's is not), so under ``prefill_chunk > 1`` a request's logits are
+held to its solo run within the logit bound, not bitwise, and a token may
+differ where the top two logits lie within it.  Stalled (``n_tok == 0``)
+and free slots leave their cache rows untouched in a chunk iteration.
+Prefix sharing is not ported (ROADMAP queue 1 item 1d): ``prefix_hits``
+and ``prefix_tokens_shared`` stay 0.
 """
 from __future__ import annotations
 
@@ -43,14 +57,21 @@ from .request import (DECODE, FINISH_CANCELLED, FINISH_ERROR, FINISH_LENGTH,
 
 class Scheduler:
     """Iteration-level scheduler over a :class:`~repro_torch.serve.ServeEngine`'s
-    cache pool and decode/sample steps."""
+    cache pool and decode/prefill/sample steps."""
 
-    def __init__(self, engine, admission: str = "continuous"):
+    def __init__(self, engine, admission: str = "continuous",
+                 token_budget: Optional[int] = None):
         if admission not in ("continuous", "static"):
             raise ValueError(f"admission must be 'continuous' or 'static', "
                              f"got {admission!r}")
+        if token_budget is not None and token_budget < 1:
+            raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         self.engine = engine
         self.admission = admission
+        # max tokens consumed per iteration; decoding slots always get their
+        # 1 token (stalling a decoder gains nothing: its slot stays busy),
+        # the remainder is split over prefilling slots in slot order
+        self.token_budget = token_budget
         self.queue: deque = deque()
         self.active: Dict[int, RequestState] = {}   # slot -> state
         self.finished: List[RequestState] = []
@@ -153,39 +174,75 @@ class Scheduler:
     def _step_active(self, obs) -> bool:
         pool = self.engine.pool
         B = pool.max_slots
-        # every active slot consumes one token: its next prompt token while
-        # prefilling, else the token it sampled last step.  Rows of the one
-        # host vector (one copy to the device): tokens, positions, seeds,
-        # top-k, and the temperatures' f32 bits
-        host = np.zeros((5, B), np.int32)
+        C = self.engine.prefill_chunk
+
+        # -- per-slot consume counts for this iteration ---------------------
+        n_tok = np.zeros(B, np.int32)
+        prefilling: List[int] = []
+        n_decode = 0
+        for slot, st in self.active.items():
+            if st.pos < st.prompt_len:
+                prefilling.append(slot)
+            else:
+                n_tok[slot] = 1
+                n_decode += 1
+        budget_left = (None if self.token_budget is None
+                       else max(self.token_budget - n_decode, 0))
+        for slot in sorted(prefilling):
+            st = self.active[slot]
+            want = min(C, st.prompt_len - st.pos)
+            if budget_left is not None:
+                want = min(want, budget_left)
+                budget_left -= want
+            n_tok[slot] = want
+        # progress is guaranteed: decoders always consume 1, and with no
+        # decoders budget_left starts at token_budget >= 1, so the first
+        # prefilling slot gets at least one token
+
+        use_chunk = C > 1 and any(n_tok[s] != 1 for s in self.active)
+        W = C if use_chunk else 1
+        # the one host array (one copy to the device), a row per slot: W
+        # token columns, then the position, the consume count, the last
+        # consumed position (the sampler's key), the seed, top-k and the
+        # temperature's f32 bits.  Slot-major, so the (B, W) tokens keep the
+        # row-major layout whose GEMMs every step of a width shares
+        host = np.zeros((B, W + 6), np.int32)
         temps = np.zeros(B, np.float32)
         for slot, st in self.active.items():
-            host[0, slot] = (st.prompt[st.pos] if st.pos < st.prompt_len
-                             else st.generated[-1])
-            host[1, slot] = st.pos
+            n = int(n_tok[slot])
+            if st.pos < st.prompt_len:
+                host[slot, :n] = st.prompt[st.pos:st.pos + n]
+            else:
+                host[slot, 0] = st.generated[-1]
             sp = st.request.sampling
-            host[2, slot] = sp.seed
-            host[3, slot] = sp.top_k
+            host[slot, W:W + 5] = (st.pos, n, st.pos + max(n, 1) - 1,
+                                   sp.seed, sp.top_k)
             temps[slot] = sp.temperature
-        host[4] = temps.view(np.int32)
+        host[:, W + 5] = temps.view(np.int32)
         # RequestState.pos is the single source of truth; the pool's [B]
         # vector is synced here, the one place it is consumed
-        pool.positions[:] = host[1]
-        dev = self.engine.device
-        vec = torch.from_numpy(host).to(dev)
-        tok, pos = vec[0], vec[1]
+        pool.positions[:] = host[:, W]
+        eng = self.engine
+        vec = torch.from_numpy(host).to(eng.device)
+        tok, pos, last_pos = vec[:, :W], vec[:, W], vec[:, W + 2]
 
-        with obs.span("serve/decode") as sp:
-            logits, pool.cache = self.engine.decode_fn(
-                self.engine.params, pool.cache, tok[:, None], pos)
-            sp.watch(logits)
+        if use_chunk:
+            with obs.span("serve/prefill") as sp:
+                logits, pool.cache = eng.prefill_fn(eng.params, pool.cache,
+                                                    tok, pos, vec[:, W + 1])
+                sp.watch(logits)
+        else:
+            with obs.span("serve/decode") as sp:
+                logits, pool.cache = eng.decode_fn(eng.params, pool.cache,
+                                                   tok, pos)
+                sp.watch(logits)
         with obs.span("serve/sample") as sp:
             if temps.any():
-                tok_dev = self.engine.sample_fn(logits, pos, vec[2],
-                                                vec[4].view(torch.float32),
-                                                vec[3])
+                tok_dev = eng.sample_fn(logits, last_pos, vec[:, W + 3],
+                                        vec[:, W + 5].view(torch.float32),
+                                        vec[:, W + 4])
             else:
-                tok_dev = self.engine.greedy_fn(logits)
+                tok_dev = eng.greedy_fn(logits)
             sp.watch(tok_dev)
         # the one device-to-host read the iteration REQUIRES (the scheduler
         # needs the sampled ids to build the next iteration's vectors)
@@ -195,20 +252,23 @@ class Scheduler:
         # window where an exception would leak slots without _recover()
         fault_point("serve/mid_iteration")
 
-        n_active = len(self.active)
+        n_sum = int(n_tok.sum())
         self.iterations += 1
-        self.active_slot_steps += n_active
-        self.tokens_consumed += n_active
+        self.active_slot_steps += int((n_tok > 0).sum())
+        self.tokens_consumed += n_sum
         obs.inc("serve/iterations")
-        obs.inc("serve/tokens", n_active)
+        obs.inc("serve/tokens", n_sum)
 
         now = time.time()
         for slot, st in list(self.active.items()):
-            if st.wants_sample_at(st.pos):
+            n = int(n_tok[slot])
+            if not n:
+                continue                    # stalled under the token budget
+            if st.wants_sample_at(st.pos + n - 1):
                 st.generated.append(int(next_tok[slot]))
                 if st.first_token_at is None:
                     st.first_token_at = now
-            st.pos += 1
+            st.pos += n
             st.status = PREFILL if st.pos < st.prompt_len else DECODE
             if len(st.generated) >= st.request.max_new_tokens:
                 st.finish(FINISH_LENGTH)

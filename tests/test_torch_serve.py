@@ -5,9 +5,12 @@ itself, mirroring ``tests/test_serve.py``.
 
 Reduced configs through ``TrainConfig(smoke=True)`` (f32, an f32 cache);
 the reference's weights carried over by ``params_from_numpy``; prompts
-made from a numpy seed.  Against the reference: the same tokens per rid,
-the same finish reasons, the same ``iterations`` and the same ``to_dict``
-keys.  The two sides' logits differ by other matmul and reduction stacks,
+made from a numpy seed.  Against the reference, at one token an
+iteration and in chunks (``prefill_chunk`` 2-5, with and without a
+``token_budget``): the same tokens per rid, the same finish reasons, the
+same ``iterations``, ``occupancy`` and ``to_dict`` keys, and in every
+iteration the same path (chunk or decode), positions and consume counts
+(host logic, exact).  The two sides' logits differ by other matmul and reduction stacks,
 so equal tokens are held to a margin: every greedy step's top-2 margin in
 the reference's logits is asserted above twice the f32 logit bound of
 ``tests/test_torch_decode.py`` (2e-5 of the row's largest |logit|), and
@@ -22,10 +25,18 @@ bitwise (a row's arithmetic at a fixed width does not depend on its
 neighbours; masked stale rows add exact zeros); against one slot (the
 GEMMs' bits depend on their row count) the tokens are equal with the
 batched run's margins asserted as above.  The ring cache's reset is
-bitwise.
+bitwise.  ``prefill_chunk=1`` is bitwise to the one-token iteration the
+scheduler had before its chunk path; a chunked rerun is bitwise; a chunk
+iteration leaves a stalled and a free slot's cache rows untouched.  Under
+chunking a request is not bitwise to its solo run (a GEMM of C rows
+rounds unlike one of 1), so its tokens are held to the reference's with
+the margins asserted.  The construction errors carry the reference's
+text.
 """
 import contextlib
 import datetime
+import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -86,7 +97,19 @@ MIXES = {
                    seed=19, admission="static"),
     # a request that fills the cache (20 + 13 - 1 = 32 positions)
     "max_len": dict(width=4, early=[(20, 16), (5, 4)], seed=40),
+    # :167: chunked prefill with a mid-flight admission, greedy and sampled
+    **{f"chunk{c}": dict(width=3, early=[(9, 6), (4, 8)], seed=7, steps=3,
+                         late=[(11, 5), (6, 7, (0.9, 4, 13))], late_seed=8,
+                         chunk=c) for c in (1, 2, 3, 5)},
+    # :245: a long prompt admitted mid-flight under a token budget
+    "budget": dict(width=3, early=[(5, 10), (4, 10)], seed=11, steps=4,
+                   late=[(14, 4)], late_seed=12, chunk=4, budget=5),
+    # the budget stalls slot 1 (n_tok 0) while slot 0 takes it all
+    "stall": dict(width=3, early=[(8, 3), (8, 3)], seed=13, chunk=4,
+                  budget=4),
 }
+MIXES["max_len_c5"] = dict(MIXES["max_len"], chunk=5)
+MIXES["static_c3"] = dict(MIXES["static"], chunk=3)
 
 
 def _specs(mix, vocab):
@@ -131,35 +154,64 @@ def _by_rid(out, key="generated"):
     return {r["rid"]: r[key] for r in out["results"]}
 
 
+def _key(name):
+    """An engine's (width, prefill_chunk, token_budget) for a mix."""
+    mix = MIXES[name]
+    return mix["width"], mix.get("chunk", 1), mix.get("budget")
+
+
 @contextlib.contextmanager
 def _capture(engine, to_numpy):
-    """Record every decode step's logits and the rows that sample from it,
-    as [(logits (B, V) f64, [(slot, SamplingParams, position)])]."""
+    """Record every step of ``engine`` (``decode_fn`` and ``prefill_fn``)
+    as dict(path "decode" or "chunk", pos (B,), n_tok (B,), the decoding
+    slots, logits (B, V) f64, rows [(slot, SamplingParams, last consumed
+    position)] that sample from it).  A decode step consumes one token in
+    every active slot."""
     log = []
-    inner = engine.decode_fn
+    inner = engine.decode_fn, engine.prefill_fn
+
+    def record(path, logits, pos, n_tok):
+        act = engine.scheduler.active
+        if n_tok is None:
+            n_tok = np.zeros(len(pos), np.int32)
+            n_tok[list(act)] = 1
+        else:
+            n_tok = np.asarray(to_numpy(n_tok))
+        rows = [(slot, st.request.sampling, st.pos + int(n_tok[slot]) - 1)
+                for slot, st in act.items() if n_tok[slot]
+                and st.wants_sample_at(st.pos + int(n_tok[slot]) - 1)]
+        log.append(dict(path=path, pos=np.asarray(to_numpy(pos)),
+                        n_tok=n_tok, rows=rows,
+                        decoding=sorted(slot for slot, st in act.items()
+                                        if st.pos >= st.prompt_len),
+                        logits=np.asarray(to_numpy(logits), np.float64)))
 
     def decode(params, cache, tok, pos):
-        logits, cache = inner(params, cache, tok, pos)
-        rows = [(slot, st.request.sampling, st.pos)
-                for slot, st in engine.scheduler.active.items()
-                if st.wants_sample_at(st.pos)]
-        log.append((np.asarray(to_numpy(logits), np.float64), rows))
+        logits, cache = inner[0](params, cache, tok, pos)
+        record("decode", logits, pos, None)
+        return logits, cache
+
+    def prefill(params, cache, tok, pos, n_tok):
+        logits, cache = inner[1](params, cache, tok, pos, n_tok)
+        record("chunk", logits, pos, n_tok)
         return logits, cache
 
     engine.decode_fn = decode
+    if inner[1] is not None:
+        engine.prefill_fn = prefill
     try:
         yield log
     finally:
-        engine.decode_fn = inner
+        engine.decode_fn, engine.prefill_fn = inner
 
 
 def _assert_margins(log):
     """Every sampled position's margin above what the logit bound (and the
     Gumbel bound) can move; returns the number of positions held."""
     n = 0
-    for logits, rows in log:
-        for slot, sp, pos in rows:
-            row = logits[slot]
+    for step in log:
+        for slot, sp, pos in step["rows"]:
+            row = step["logits"][slot]
             tol = 2 * LOGIT_TOL * np.abs(row).max()
             if sp.temperature == 0:
                 top2 = np.sort(row)[-2:]
@@ -207,12 +259,13 @@ def qwen(ref_qwen):
 def ref_engines(ref_qwen):
     made = {}
 
-    def get(width):
-        if width not in made:
-            made[width] = RefServeEngine.from_session(
+    def get(width, chunk=1, budget=None):
+        if (width, chunk, budget) not in made:
+            made[width, chunk, budget] = RefServeEngine.from_session(
                 ref_qwen, max_slots=width, max_len=MAX_LEN,
+                prefill_chunk=chunk, token_budget=budget,
                 prefix_sharing=False)
-        return made[width]
+        return made[width, chunk, budget]
     return get
 
 
@@ -220,11 +273,12 @@ def ref_engines(ref_qwen):
 def engines(qwen):
     made = {}
 
-    def get(width):
-        if width not in made:
-            made[width] = ServeEngine.from_session(qwen, max_slots=width,
-                                                   max_len=MAX_LEN)
-        return made[width]
+    def get(width, chunk=1, budget=None):
+        if (width, chunk, budget) not in made:
+            made[width, chunk, budget] = ServeEngine.from_session(
+                qwen, max_slots=width, max_len=MAX_LEN, prefill_chunk=chunk,
+                token_budget=budget)
+        return made[width, chunk, budget]
     return get
 
 
@@ -234,17 +288,41 @@ def engines(qwen):
 
 @pytest.mark.parametrize("name", list(MIXES))
 def test_mix_matches_reference(qwen, ref_engines, engines, name):
+    """The same tokens, finish reasons, iterations and occupancy, and in
+    every iteration the same path, positions and consume counts (host
+    logic: exact)."""
     mix = MIXES[name]
     vocab = qwen.model_cfg.vocab
-    ref = ref_engines(mix["width"])
+    ref = ref_engines(*_key(name))
     with _capture(ref, np.asarray) as log:
         want = _drive(ref, mix, vocab, RefRequest, RefSamplingParams)
-    got = _drive(engines(mix["width"]), mix, vocab)
+    eng = engines(*_key(name))
+    with _capture(eng, lambda t: t.numpy()) as got_log:
+        got = _drive(eng, mix, vocab)
     assert _assert_margins(log) == sum(len(g) for g in
                                        _by_rid(want).values())
     assert _by_rid(got) == _by_rid(want)
     assert _by_rid(got, "finish_reason") == _by_rid(want, "finish_reason")
     assert got["iterations"] == want["iterations"]
+    # run() counts the drain; the log holds the early steps too
+    assert len(log) == want["iterations"] + mix.get("steps", 0)
+    assert got["occupancy"] == want["occupancy"]
+    assert len(got_log) == len(log)
+    for i, (g, w) in enumerate(zip(got_log, log)):
+        assert g["path"] == w["path"], i
+        np.testing.assert_array_equal(g["pos"], w["pos"], err_msg=str(i))
+        np.testing.assert_array_equal(g["n_tok"], w["n_tok"],
+                                      err_msg=str(i))
+        assert g["decoding"] == w["decoding"], i
+        assert [r[::2] for r in g["rows"]] == [r[::2] for r in w["rows"]]
+    width, chunk, budget = _key(name)
+    paths = {w["path"] for w in log}
+    assert paths == ({"decode"} if chunk == 1 else {"decode", "chunk"})
+    for w in log:
+        # a decoder takes exactly one token; the budget caps the rest
+        assert (w["n_tok"][w["decoding"]] == 1).all()
+        if budget is not None:
+            assert w["n_tok"].sum() <= max(budget, len(w["decoding"]))
     assert set(got) - {"phase_breakdown"} == set(want) - {"phase_breakdown"}
     for g, w in zip(got["results"], want["results"]):
         assert list(g) == list(w)
@@ -253,8 +331,16 @@ def test_mix_matches_reference(qwen, ref_engines, engines, name):
     if name == "max_len":
         assert _by_rid(got, "finish_reason")[0] == "max_len"
         assert len(_by_rid(got)[0]) == MAX_LEN - 20 + 1
-    if name == "static":
-        assert got["occupancy"] == want["occupancy"]
+    if name.startswith("chunk") and chunk > 1:
+        # prompts really were consumed several tokens an iteration
+        assert got["iterations"] < sum(len(p) + n - 1 for _, p, n, _ in
+                                       _specs(mix, vocab))
+    if name == "budget":
+        # two decoders hold 2 of the 5 tokens: the late 14-token prompt
+        # takes at most 3 an iteration
+        assert got["iterations"] + mix["steps"] > 14 // 3
+    if name == "stall":
+        assert log[0]["n_tok"].tolist() == [4, 0, 0]
 
 
 def test_request_module_matches_reference():
@@ -592,11 +678,170 @@ def test_mesh_executor_serving_raises(qwen, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("kw", [dict(prefill_chunk=2),
-                                dict(token_budget=4)])
-def test_chunked_prefill_and_budget_not_ported(qwen, kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 1c"):
-        ServeEngine.from_session(qwen, max_slots=2, max_len=16, **kw)
-    engine = ServeEngine.from_session(qwen, max_slots=2, max_len=16)
-    assert engine.prefix_sharing is False
+# ---------------------------------------------------------------------------
+# chunked prefill and the token budget within the port
+# ---------------------------------------------------------------------------
 
+def _one_token_iteration(sch, obs):
+    """The scheduler's iteration as it was before the chunk path: every
+    active slot consumes one token through one ``decode_step``, sampled at
+    its position.  ``prefill_chunk=1`` must match it bitwise."""
+    eng, pool = sch.engine, sch.engine.pool
+    B = pool.max_slots
+    tok = torch.zeros(B, 1, dtype=torch.int32)
+    pos, seeds, topks = (torch.zeros(B, dtype=torch.int32) for _ in range(3))
+    temps = torch.zeros(B)
+    for slot, st in sch.active.items():
+        tok[slot, 0] = (st.prompt[st.pos] if st.pos < st.prompt_len
+                        else st.generated[-1])
+        pos[slot] = st.pos
+        sp = st.request.sampling
+        seeds[slot], topks[slot], temps[slot] = (sp.seed, sp.top_k,
+                                                 sp.temperature)
+    pool.positions[:] = pos.numpy()
+    logits, pool.cache = eng.decode_fn(eng.params, pool.cache, tok, pos)
+    next_tok = (eng.sample_fn(logits, pos, seeds, temps, topks)
+                if temps.any() else eng.greedy_fn(logits)).numpy()
+    sch.iterations += 1
+    sch.active_slot_steps += len(sch.active)
+    sch.tokens_consumed += len(sch.active)
+    for slot, st in list(sch.active.items()):
+        if st.wants_sample_at(st.pos):
+            st.generated.append(int(next_tok[slot]))
+            st.first_token_at = st.first_token_at or time.time()
+        st.pos += 1
+        if len(st.generated) >= st.request.max_new_tokens:
+            st.finish("length")
+        elif st.pos >= eng.max_len:
+            st.finish("max_len")
+        if st.finished_at is not None:
+            del sch.active[slot]
+            pool.evict(slot)
+            sch.finished.append(st)
+    return True
+
+
+def _same_steps(a, b):
+    """Two captures of one mix: the same paths, positions, consume counts
+    and logits, bitwise."""
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x["path"] == y["path"], i
+        for k in ("pos", "n_tok", "logits"):
+            np.testing.assert_array_equal(x[k], y[k], err_msg=f"{i} {k}")
+
+
+@pytest.mark.parametrize("name", ["six", "midflight", "sampled", "static",
+                                  "chunk1"])
+def test_chunk1_bitwise_to_one_token_iteration(qwen, engines, name):
+    """``prefill_chunk=1`` never takes the chunk path, and every iteration
+    (logits, tokens, iterations, occupancy) is bitwise to the one-token
+    scheduler's."""
+    mix, vocab = MIXES[name], qwen.model_cfg.vocab
+    eng = engines(mix["width"])
+    assert eng.prefill_fn is None and eng.prefix_sharing is False
+    with _capture(eng, lambda t: t.numpy()) as log:
+        got = _drive(eng, mix, vocab)
+    eng.scheduler._step_active = types.MethodType(_one_token_iteration,
+                                                  eng.scheduler)
+    try:
+        with _capture(eng, lambda t: t.numpy()) as old_log:
+            old = _drive(eng, mix, vocab)
+    finally:
+        del eng.scheduler._step_active
+    assert {x["path"] for x in log} == {"decode"}
+    _same_steps(log, old_log)
+    assert _by_rid(got) == _by_rid(old)
+    assert _by_rid(got, "finish_reason") == _by_rid(old, "finish_reason")
+    assert (got["iterations"], got["occupancy"]) == (old["iterations"],
+                                                     old["occupancy"])
+
+
+@pytest.mark.parametrize("name", ["chunk3", "budget", "max_len_c5"])
+def test_chunked_rerun_bitwise(qwen, engines, name):
+    """The same chunked mix twice through one engine (the second over the
+    first's stale rows): every iteration and token bitwise."""
+    mix, vocab = MIXES[name], qwen.model_cfg.vocab
+    eng = engines(*_key(name))
+    runs = []
+    for _ in range(2):
+        with _capture(eng, lambda t: t.numpy()) as log:
+            runs.append((_drive(eng, mix, vocab), log))
+    (first, a), (again, b) = runs
+    assert "chunk" in {x["path"] for x in a}
+    _same_steps(a, b)
+    assert _by_rid(first) == _by_rid(again)
+    assert first["iterations"] == again["iterations"]
+
+
+def test_stalled_and_free_rows_untouched(qwen, engines):
+    """A chunk iteration leaves the cache rows of a slot stalled under the
+    budget (n_tok 0) and of a free slot bitwise unchanged, and writes the
+    consuming slot's rows [pos, pos + n_tok) only."""
+    eng = engines(*_key("stall"))
+    seen, inner = [], eng.prefill_fn
+
+    def prefill(params, cache, tok, pos, n_tok):
+        before = {k: c.clone() for k, c in cache["blocks"].items()}
+        logits, cache = inner(params, cache, tok, pos, n_tok)
+        end = int(pos[0] + n_tok[0])
+        seen.append((n_tok.tolist(), pos.tolist(), {
+            k: [torch.equal(c[:, s], before[k][:, s]) for s in range(3)]
+            + [torch.equal(c[:, 0, end:], before[k][:, 0, end:])]
+            for k, c in cache["blocks"].items()}))
+        return logits, cache
+
+    eng.prefill_fn = prefill
+    try:
+        _drive(eng, MIXES["stall"], qwen.model_cfg.vocab)
+    finally:
+        eng.prefill_fn = inner
+    n_tok, pos, same = seen[0]
+    assert n_tok == [4, 0, 0] and pos == [0, 0, 0]
+    for k in ("k", "v"):
+        # slot 0 written, slots 1 (stalled) and 2 (free) untouched, slot 0
+        # past its 4 tokens untouched
+        assert same[k] == [False, True, True, True], k
+
+
+def _no_prefill_model(model):
+    return types.SimpleNamespace(decode_step=model.decode_step)
+
+
+@pytest.mark.parametrize("case", ["chunk_below_1", "no_prefill_step",
+                                  "sliding_window", "budget_needs_chunk",
+                                  "budget_below_1"])
+def test_construction_errors_match_reference(qwen, ref_qwen, swa, case):
+    """The engine's four ValueErrors and the scheduler's, in the
+    reference's order and with its text."""
+    sides = []
+    for sess, eng_cls, rcfg in ((qwen, ServeEngine, None),
+                                (ref_qwen, RefServeEngine, REF_SWA)):
+        model, cfg, params = sess.model, sess.model_cfg, sess.state.params
+        kw = dict(max_slots=2, max_len=16)
+        if case == "chunk_below_1":
+            kw.update(prefill_chunk=0)
+        elif case == "no_prefill_step":
+            model = _no_prefill_model(model)
+            kw.update(prefill_chunk=2)
+        elif case == "sliding_window":
+            if rcfg is None:
+                model, cfg, params = swa.model, swa.model_cfg, None
+            else:
+                cfg = rcfg.reduced()
+                model, params = ref_build(cfg), None
+            kw.update(prefill_chunk=2)
+        elif case == "budget_needs_chunk":
+            kw.update(token_budget=4)
+        else:
+            kw.update(prefill_chunk=2, token_budget=0)
+        with pytest.raises(ValueError) as err:
+            eng_cls(model, cfg, params, **kw)
+        sides.append(str(err.value))
+    assert sides[0] == sides[1]
+    if case == "sliding_window":
+        assert "sliding-window" in sides[0]
+        # prefill_chunk=1 (prefill-by-decode) stays available
+        eng = ServeEngine.from_session(swa, max_slots=2, max_len=16)
+        out = eng.run([Request(prompt=[1, 2, 3], max_new_tokens=2)])
+        assert len(out["results"][0]["generated"]) == 2
