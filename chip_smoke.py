@@ -86,8 +86,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
                each resumed bitwise from a snapshot; and the paper-protocol
                twin's four engines at full width;
-7. ssm      — full-width mamba2-1.3b cut to 16 of its 48 layers
-               (619,467,776 params; cut in depth so the whole script
+7. ssm      — full-width mamba2-1.3b cut to 4 of its 48 layers
+               (309,328,640 params; cut in depth so the whole script
                stays inside its limit on a slow host) and zamba2-1.2b at
                full depth (1,170,313,344) at 1,024 tokens, after the
                lifecycle: ``ghost_norm_dense`` at mamba2's forced-direct
@@ -96,8 +96,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                length (a physical batch of 1); ``fit()`` per engine (mamba2:
                ``masked_pe``, ``masked_ghost``, ``masked_bk``,
                ``masked_fused_stream`` 2 steps each, ``masked_fused`` and
-               ``nonprivate`` 1; zamba2: ghost, BK and the stream 2 each,
-               ``nonprivate`` 1), ``ghost_norm_dense`` launched 0 (mamba2)
+               ``nonprivate`` 1; zamba2: ghost, BK, the stream and
+               ``nonprivate`` 1 each), ``ghost_norm_dense`` launched 0 (mamba2)
                and 7 (zamba2) times per norm pass; the chunked SSD scan on
                one layer's real activations against the per-token
                recurrence and a smaller chunk; on one physical batch
@@ -261,7 +261,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``logits()`` at their last prompt position, both ending with
                "length"; (l) in the first chunk iteration of (k) with a
                stalled row (``n_tok == 0``), that slot's and a free slot's
-               K/V rows bitwise unchanged; (m) (g) holds for all of it.
+               K/V rows bitwise unchanged.  Every engine so far is built
+               with ``prefix_sharing=False`` (M repeats a prompt, so
+               sharing would change its schedule).  Then prefix sharing
+               (engines of 8 slots of 1,024 rows, bf16, sharing on
+               against off): (c') on the full-width cache, a source
+               slot's rows [0, 300) copied into another slot bitwise in
+               every leaf by ``share_prefix``, the rows past the depth and
+               every other slot untouched, the copy timed against its
+               bytes; (m) P1 (4 greedy requests on a 24-token prefix, 8
+               new tokens each, the others submitted once request 0 has
+               its first token) at one token an iteration: tokens and
+               first-token rows bitwise to sharing off, 3 hits, 72 tokens
+               shared; (n) P2, a shared 256-token system prompt (8
+               requests, tails of 16-48 tokens, 16 new each, one at
+               temperature 0.8 / top-k 5) in chunks of 32 under a budget
+               of 64: 7 hits, 1,792 tokens shared, each first-token row
+               within ``DECODE_LOGIT_REL_TOL`` of sharing off's (the argmax
+               equal where the margin exceeds twice that); in (m) and (n)
+               the iterations the CPU rehearsal counts and the scheduler's
+               two host syncs an iteration, and iterations, tokens/s,
+               TTFT p50/p95 and the hit rate printed for both runs; (o)
+               ``session.generate`` twice through one cached engine,
+               bitwise, its prompts bitwise to the port's draw on the CPU;
+               (g) holds for all of it.  Last, (q) the quickstart twin on
+               the card (``QUICKSTART OK``, ε ≤ 8, the noise-only body once
+               a step) and (p) the serving CLI in process, at full width
+               (12 requests through 8 slots in chunks of 32 under a budget
+               of 64) and with ``--smoke --ckpt`` on the twin's checkpoint.
+               Every phase's seconds are printed.
 
 ``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
 ``ghost_norm_dense`` check alone against the package under ``DIR/src``
@@ -269,7 +297,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The line before the last lists the kernels as JSON (launches summed over
 every ``fit()``, ViT's, DenseLM's, the lifecycle's, the SSM, MoE and
-frontend phases' and phase 10's ranks', the noise-only body as
+frontend phases', phase 10's ranks' and the quickstart twin's, the
+noise-only body as
 ``noisy_sgd_update``'s
 ``noise_only`` record; times at ViT-Base's main-path shapes, the other
 phases' in the record); the last line is ``{"ok": true, "device":
@@ -2203,11 +2232,14 @@ def run_lifecycle(device, timer, view):
 # width, the state, the heads, the chunk, zamba2's attn_every of 6), bf16
 # activations, f32 params, random weights from the seed, at 1,024 tokens (a
 # multiple of the SSD chunk of 64); n 64, q 0.125, eps 8, clip 4.63.
-# zamba2 runs at full depth; mamba2 is cut to 16 of its 48 layers, since
-# the whole script at full depth took 1,220.8 s on a slow host (phase 7
-# 439.6 s of it, about 314 s on a fast one), where 1,050 s is the aim: 171
-# s had to go, and a mamba2 layer takes about 3.5 s of phase 7 on a fast
-# host, about 4.9 on that one, so 32 layers.  The
+# zamba2 runs at full depth (its shared block's T_eff of 6,144 sets the
+# kernel's path) and 1 step per engine; mamba2 is cut to 4 of its 48
+# layers, since the whole script at full depth took 1,220.8 s on a slow
+# host (phase 7 439.6 s of it, about 314 s on a fast one), where 1,050 s
+# is the aim, and a mamba2 layer takes about 3.5 s of phase 7 on a fast
+# host, about 4.9 on that one: 32 layers went first, then 12 more and
+# zamba2's second steps to pay for phase 12's prefix sharing and entry
+# points.  The
 # physical batch is the largest of 4, 2 and 1 at which masked_fused fits:
 # 1 for both (at 2 it ran out of the card's memory on both; at 1 and full
 # depth it peaks at 66.5 GB allocated and 84.2 reserved on mamba2, 55.9 and
@@ -2244,7 +2276,7 @@ MAMBA2_LIMITS = {
     "norms": 1e-3, "forced": 1e-4}
 SSM_MODELS = {
     "mamba2-1.3b": dict(
-        n_layers=16, params=619_467_776, physical_batch=1,
+        n_layers=4, params=309_328_640, physical_batch=1,
         limits=MAMBA2_LIMITS,
         # at T = 1,024 every dense takes the Gram path (in_proj 2,048 x
         # 8,512 and out_proj 4,096 x 2,048 go direct only above T = 4,175
@@ -2263,8 +2295,8 @@ SSM_MODELS = {
         # kernel, once each per norm pass; the mamba denses and the head
         # take the Gram path
         direct_per_pass=7,
-        fits=(("masked_ghost", 2), ("masked_bk", 2),
-              ("masked_fused_stream", 2), ("nonprivate", 1)),
+        fits=(("masked_ghost", 1), ("masked_bk", 1),
+              ("masked_fused_stream", 1), ("nonprivate", 1)),
         ghost_shapes={"zamba2_attn": (6144, 2048, 2048),
                       "zamba2_w1_w3": (6144, 2048, 8192),
                       "zamba2_w2": (6144, 8192, 2048)}),
@@ -3393,6 +3425,30 @@ SERVE_LONG_FIRST = 6
 SERVE_LONG_STEPS = 2
 SERVE_LONG_SHARES = (5, 11)
 SERVE_LONG_NEW = 16
+# (c'), (m), (n): prefix sharing on the same session and weights, engines
+# of 8 slots of 1,024 rows and a bf16 cache, sharing on against sharing
+# off.  P1, at one token an iteration: 4 greedy requests on a 24-token
+# prefix with seeded tails of 4-8 tokens, 8 new tokens each.  P2, a shared
+# system prompt, in chunks of 32 under a budget of 64: 8 requests on a
+# 256-token prefix with tails of 16-48 tokens, 16 new tokens each, request
+# 3 at temperature 0.8 / top-k 5 (seed 11).  In both the others are
+# submitted once request 0 has its first token, and each shares the whole
+# prefix with a resident.  The iterations (sharing on, off) are the CPU
+# rehearsal's: every request ends on its length, so the schedule depends
+# on the lengths alone
+SERVE_P1 = dict(n=4, prefix=24, tail=(4, 8), new=8, sampled=None, seed=2,
+                shared=3 * 24, iterations=(44, 68))
+SERVE_P2 = dict(n=8, prefix=256, tail=(16, 48), new=16,
+                sampled=(3, (0.8, 5, 11)), seed=3, shared=7 * 256,
+                iterations=(29, 61))
+# (c'): rows [0, SERVE_SHARE_DEPTH) copied from one slot to another
+SERVE_SHARE_DEPTH = 300
+# (o) session.generate, twice; (p) the serving CLI at full width, then on
+# the quickstart twin's checkpoint (the reduced config)
+SERVE_GENERATE = dict(batch=4, prompt_len=16, new_tokens=16, max_len=64)
+SERVE_CLI = ("--arch", SERVE_ARCH, "--requests", "12", "--batch", "8",
+             "--max-len", "64", "--prefill-chunk", "32", "--token-budget",
+             "64")
 
 
 def serve_mix(vocab: int, seed: int = 0) -> list:
@@ -3707,7 +3763,8 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
                    if device.type == "cuda" else 0)
     engine = ServeEngine.from_session(session, max_slots=SERVE_SLOTS,
                                       max_len=SERVE_MAX_LEN,
-                                      cache_dtype=torch.bfloat16)
+                                      cache_dtype=torch.bfloat16,
+                                      prefix_sharing=False)
     pool = engine.pool
     cache_bytes = sum(c.numel() * c.element_size()
                       for c in pool.cache["blocks"].values())
@@ -3766,7 +3823,8 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
     # gave M's tokens bitwise)
     solo = ServeEngine.from_session(session, max_slots=1,
                                     max_len=SERVE_MAX_LEN,
-                                    cache_dtype=torch.bfloat16)
+                                    cache_dtype=torch.bfloat16,
+                                    prefix_sharing=False)
     res["one_slot"] = []
     for s in picks[1:]:
         with serve_trace(solo, rows=True, force={s[0]: gen[s[0]]}) as tr:
@@ -3845,11 +3903,14 @@ def run_serve(device, smi: str, decode_b8_ms: float) -> dict:
     del solo
     res["chunked"] = run_serve_chunked(session, mix, gen, one_tr["first"],
                                        smi, res)
+    res["prefix"] = run_serve_prefix(session, smi)
+    res["generate"] = check_generate(session, smi)
     # (g) serving launches none of the four training kernels; the probes
     # allocated nothing
     res["kernel_launches"] = counts = read_counts()
     assert not any(counts.values()), counts
     assert probe_bytes == 0, probe_bytes
+    res.update(run_serve_entry(device, smi))
     # the scheduler's own host cost per iteration, two readings: ms per
     # iteration less phase 11's decode step at B = 8 (timed in this run; the
     # two differ by less than the host clock's spread between phases, so
@@ -3885,7 +3946,7 @@ def run_serve_chunked(session, mix, gen, one_rows, smi, one) -> dict:
     engine = ServeEngine.from_session(
         session, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
         cache_dtype=torch.bfloat16, prefill_chunk=SERVE_CHUNK,
-        token_budget=SERVE_BUDGET)
+        token_budget=SERVE_BUDGET, prefix_sharing=False)
     res = {"prefill_chunk": SERVE_CHUNK, "token_budget": SERVE_BUDGET}
     # (h) M through the chunk engine, each iteration timed and traced as
     # M's first run was: the scheduler's two host syncs an iteration
@@ -3977,6 +4038,291 @@ def run_serve_chunked(session, mix, gen, one_rows, smi, one) -> dict:
     return res
 
 
+def prefix_mix(spec, vocab: int) -> list:
+    """P1 or P2 (``spec``) as [(rid, prompt, max_new_tokens, (temperature,
+    top_k, seed) or None)]: the tails' lengths are drawn first, so they do
+    not depend on the vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(spec["seed"])
+    lens = rng.integers(spec["tail"][0], spec["tail"][1] + 1, spec["n"])
+    prefix = rng.integers(0, vocab, spec["prefix"]).tolist()
+    mix = [[i, prefix + rng.integers(0, vocab, int(n)).tolist(),
+            spec["new"], None] for i, n in enumerate(lens)]
+    if spec["sampled"]:
+        mix[spec["sampled"][0]][3] = spec["sampled"][1]
+    return [tuple(r) for r in mix]
+
+
+def prefix_run(engine, mix):
+    """``mix`` through ``engine``: request 0, iterations until it has its
+    first token, then the others, then drain.  Returns (figures of all of
+    it: iterations, seconds, tokens/s, TTFT p50/p95, hits, tokens shared,
+    the hit rate over every prompt token; {rid: tokens})."""
+    sch = engine.scheduler
+    it0, busy0 = sch.iterations, sch.active_slot_steps
+    hits0, shared0 = sch.prefix_hits, sch.prefix_tokens_shared
+    t0 = time.perf_counter()
+    first = engine.submit(serve_request(mix[0]))
+    while not first.generated:
+        assert engine.step()
+    for spec in mix[1:]:
+        engine.submit(serve_request(spec))
+    out = engine.run()
+    seconds = time.perf_counter() - t0
+    gen = {r["rid"]: r["generated"] for r in out["results"]}
+    assert sorted(gen) == [s[0] for s in mix], sorted(gen)
+    assert all(r["finish_reason"] == "length" for r in out["results"]), out
+    iters = sch.iterations - it0
+    shared = sch.prefix_tokens_shared - shared0
+    fig = {"iterations": iters, "seconds": seconds,
+           "tokens_per_s": out["generated_tokens"] / seconds,
+           "ttft_p50_s": out["ttft_p50_s"], "ttft_p95_s": out["ttft_p95_s"],
+           "occupancy": (sch.active_slot_steps - busy0) / (
+               iters * engine.max_slots),
+           "prefix_hits": sch.prefix_hits - hits0,
+           "prefix_tokens_shared": shared,
+           "prefix_hit_rate": shared / sum(len(s[1]) for s in mix)}
+    return fig, gen
+
+
+def check_share_prefix(pool, depth: int) -> dict:
+    """(c') on ``pool`` (empty): a source slot's rows hold a ramp, another
+    slot's its negative; ``share_prefix`` copies rows [0, depth) of every
+    leaf bitwise and leaves the destination's later rows and every other
+    slot as they were; the copy (``_share_fn`` alone) timed against the
+    bytes it moves.  The pool is left empty and consistent."""
+    import torch
+    src, dst = pool.insert(), pool.insert()
+    leaves = list(pool.cache["blocks"].values())
+    for leaf, bax in zip(leaves, pool._batch_axes):
+        for slot, sign in ((src, 1.0), (dst, -1.0)):
+            row = leaf.select(bax, slot)
+            ramp = torch.arange(row.numel(), device=row.device) % 251 + 1
+            row.copy_((sign * ramp).reshape(row.shape))
+    before = [leaf.clone() for leaf in leaves]
+    prompt = list(range(1, depth + 2))
+    pool.prefix_index.register(src, prompt)
+    pool.positions[src] = len(prompt)
+    got = pool.share_prefix(dst, prompt[:depth] + [0])
+    res = {"depth": got, "slots": (src, dst), "leaves": len(leaves),
+           "dtype": str(leaves[0].dtype), "copied": [], "past_depth": [],
+           "others": []}
+    for leaf, old, bax, pax in zip(leaves, before, pool._batch_axes,
+                                   pool._pos_axes):
+        pax_r = pax - (1 if bax < pax else 0)
+        s_row, d_row = leaf.select(bax, src), leaf.select(bax, dst)
+        rest = d_row.shape[pax_r] - depth
+        res["copied"].append(same_bits(d_row.narrow(pax_r, 0, depth),
+                                       s_row.narrow(pax_r, 0, depth)))
+        res["past_depth"].append(same_bits(
+            d_row.narrow(pax_r, depth, rest),
+            old.select(bax, dst).narrow(pax_r, depth, rest)))
+        res["others"].append(all(
+            same_bits(leaf.select(bax, s), old.select(bax, s))
+            for s in range(pool.max_slots) if s != dst))
+    row_bytes = sum(leaf.select(bax, 0).narrow(pax - (1 if bax < pax else 0),
+                                               0, depth).numel()
+                    * leaf.element_size()
+                    for leaf, bax, pax in zip(leaves, pool._batch_axes,
+                                              pool._pos_axes))
+    if leaves[0].device.type == "cuda":
+        res["copy_ms"] = cuda_ms(lambda: pool._share_fn(pool.cache, src, dst,
+                                                        depth), 20)
+        res["bound_ms"], res["bound_by"] = bound_ms(2 * row_bytes)
+    res["bytes_copied"] = row_bytes
+    pool.evict(src)
+    pool.evict(dst)
+    pool.assert_consistent()
+    assert got == depth, res
+    assert all(res["copied"]) and all(res["past_depth"]), res
+    assert all(res["others"]), res
+    return res
+
+
+def run_serve_prefix(session, smi: str) -> dict:
+    """Phase 12 (c'), (m), (n) on the session of (a)-(l)."""
+    import torch
+    from repro_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    vocab = session.model_cfg.vocab
+    res = {}
+
+    def engines(**kw):
+        made = {share: ServeEngine.from_session(
+            session, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+            cache_dtype=torch.bfloat16, prefix_sharing=share, **kw)
+            for share in (True, False)}
+        assert made[True].prefix_sharing and not made[False].prefix_sharing
+        return made
+
+    def both(made, mix):
+        """The mix through the sharing and the non-sharing engine, each
+        under serve_trace with its host syncs counted."""
+        runs = {}
+        for share, label in ((True, "on"), (False, "off")):
+            with serve_trace(made[share], syncs=True) as tr:
+                fig, gen = prefix_run(made[share], mix)
+            assert_two_syncs(tr, fig["iterations"])
+            fig["syncs"] = tr["syncs"]
+            fig["chunk_iterations"] = tr["path"].count("chunk")
+            runs[label] = (fig, gen, tr["first"])
+        return runs
+
+    one = engines()
+    res["share_prefix"] = sp = check_share_prefix(one[True].pool,
+                                                  SERVE_SHARE_DEPTH)
+    shown = {k: v for k, v in sp.items()
+             if k not in ("copied", "past_depth", "others")}
+    log(f"[{smi}] phase 12 (c') share_prefix on the full-width cache: "
+        f"{json.dumps(shown)}")
+    # (m) P1 at one token an iteration: sharing on bitwise to sharing off
+    p1 = prefix_mix(SERVE_P1, vocab)
+    runs = both(one, p1)
+    (on, gen_on, first_on), (off, gen_off, first_off) = (runs["on"],
+                                                        runs["off"])
+    res["P1"] = m = {"on": on, "off": off,
+                     "tokens_bitwise": gen_on == gen_off,
+                     "first_rows_bitwise": sorted(first_on) == sorted(
+                         first_off) and all(same_bits(first_on[r],
+                                                      first_off[r])
+                                            for r in first_on)}
+    log(f"[{smi}] phase 12 (m) P1 at one token an iteration, sharing on "
+        f"against off: {json.dumps(m)}")
+    assert m["tokens_bitwise"] and m["first_rows_bitwise"], m
+    assert on["prefix_hits"] == SERVE_P1["n"] - 1, on
+    assert on["prefix_tokens_shared"] == SERVE_P1["shared"], on
+    assert off["prefix_hits"] == 0, off
+    assert (on["iterations"], off["iterations"]) == SERVE_P1["iterations"], m
+    del one
+    # (n) P2, a shared system prompt, in chunks under the budget
+    chunked = engines(prefill_chunk=SERVE_CHUNK, token_budget=SERVE_BUDGET)
+    p2 = prefix_mix(SERVE_P2, vocab)
+    runs = both(chunked, p2)
+    (on, gen_on, first_on), (off, gen_off, first_off) = (runs["on"],
+                                                        runs["off"])
+    rids = sorted(first_off)
+    assert rids == sorted(first_on) == [s[0] for s in p2], rids
+    res["P2"] = n = {"on": on, "off": off,
+                     "tokens_equal": sum(gen_on[r] == gen_off[r]
+                                         for r in rids),
+                     "first_rows": against_one_slot(
+                         [first_off[r] for r in rids],
+                         [first_on[r] for r in rids])}
+    log(f"[{smi}] phase 12 (n) P2, a {SERVE_P2['prefix']}-token system "
+        f"prompt, in chunks of {SERVE_CHUNK} under a budget of "
+        f"{SERVE_BUDGET}, sharing on against off: {json.dumps(n)}")
+    assert on["prefix_hits"] == SERVE_P2["n"] - 1, on
+    assert on["prefix_tokens_shared"] == SERVE_P2["shared"], on
+    assert off["prefix_hits"] == 0, off
+    assert (on["iterations"], off["iterations"]) == SERVE_P2["iterations"], n
+    del chunked
+    gc.collect()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[{smi}] phase 12 (c'), (m), (n): {res['seconds']:.1f} s")
+    return res
+
+
+def check_generate(session, smi: str) -> dict:
+    """Phase 12 (o): ``session.generate`` twice through one cached engine,
+    the tokens bitwise, the prompts bitwise to the port's draw on the CPU
+    for the session's seed."""
+    import torch
+    from repro_torch.serve.sampling import prng_key, randint
+    t0 = time.perf_counter()
+    kw = SERVE_GENERATE
+    engine = session.serve_engine(max_slots=kw["batch"],
+                                  max_len=kw["max_len"])
+    prompts, inner = [], engine.submit
+
+    def submit(request):
+        prompts.append([int(t) for t in request.prompt])
+        return inner(request)
+
+    engine.submit = submit
+    try:
+        outs = [session.generate(**kw) for _ in range(2)]
+    finally:
+        del engine.submit
+    want = randint(prng_key(torch.tensor([session.train_cfg.seed + 1])),
+                   (kw["batch"], kw["prompt_len"]), 0,
+                   session.model_cfg.vocab).tolist()
+    b = kw["batch"]
+    res = {**kw, "runs": [{k: o[k] for k in ("tokens_per_s", "iterations",
+                                              "occupancy")} for o in outs],
+           "same_engine": session.serve_engine(
+               max_slots=b, max_len=kw["max_len"]) is engine,
+           "tokens_bitwise": outs[0]["generated"] == outs[1]["generated"],
+           "prompts_bitwise_to_cpu": prompts[:b] == prompts[b:] == want,
+           "generated": outs[0]["generated"]}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[{smi}] phase 12 (o) session.generate twice: {json.dumps(res)}")
+    assert res["same_engine"] and res["tokens_bitwise"], res
+    assert res["prompts_bitwise_to_cpu"], (prompts, want)
+    assert all(len(g) == kw["new_tokens"] for g in res["generated"]), res
+    return res
+
+
+def run_serve_entry(device, smi: str) -> dict:
+    """Phase 12 (q) and (p): the quickstart twin in process (its kernel
+    counters set to 0 just before and read just after), then the serving
+    CLI in process at full width and on the twin's checkpoint, which must
+    launch no training kernel."""
+    import io
+    import shutil
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import serve
+    work = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        zero_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            q = quickstart.main(["--device", device.type, "--ckpt",
+                                 str(work / "quickstart")])
+        res["quickstart"] = rec = {
+            "eps": q["eps"], "sigma": q["sigma"], "history": q["history"],
+            "restored_step": q["restored_step"], "generated": q["generated"],
+            "ok": "QUICKSTART OK" in out.getvalue(),
+            "launches": read_counts(),
+            "seconds": time.perf_counter() - t0}
+        log(f"[{smi}] phase 12 (q) the quickstart twin: {json.dumps(rec)}")
+        assert rec["ok"] and 0 < rec["eps"] <= 8.0 + 1e-6, rec
+        assert rec["restored_step"] == 6, rec
+        if device.type == "cuda":
+            # masked_pe's AdamW update: the noise-only body once a step
+            assert rec["launches"]["noise_only"] == 6, rec
+            assert rec["launches"]["noisy_sgd_update"] == 0, rec
+        # serving launches no training kernel, through the CLI as in (g)
+        zero_counts()
+        for label, argv in (
+                ("full_width", list(SERVE_CLI)),
+                ("checkpoint", ["--arch", SERVE_ARCH, "--smoke", "--ckpt",
+                                str(work / "quickstart")])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli = serve.main([*argv, "--device", device.type])
+            cli = {k: v for k, v in cli.items() if k != "results"} | {
+                "finish": sorted({r["finish_reason"]
+                                  for r in cli.get("results", [])}),
+                "seconds": time.perf_counter() - t0}
+            res[f"cli_{label}"] = cli
+            log(f"[{smi}] phase 12 (p) the serving CLI, {label}: "
+                f"{json.dumps(cli)}")
+        res["cli_launches"] = read_counts()
+        assert not any(res["cli_launches"].values()), res["cli_launches"]
+        full, ckpt = res["cli_full_width"], res["cli_checkpoint"]
+        assert full["finish"] == ["length"] and full["prefix_sharing"], full
+        assert full["iterations"] > 0 and full["generated_tokens"] > 0, full
+        assert len(ckpt["generated"]) == 4, ckpt
+        assert all(len(g) == 8 for g in ckpt["generated"]), ckpt
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3997,7 +4343,9 @@ def main() -> int:
     from repro_torch.utils.params import FlatGradView
 
     t_start = time.perf_counter()
-    record = {}
+    t_phase = [t_start]
+    record = {"phase_seconds": {}}
+    seconds = record["phase_seconds"]
     # 1. device
     device = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -4057,6 +4405,20 @@ def main() -> int:
                                "clip_accum": cr_checks,
                                "clip_edges": edges}
     torch.cuda.empty_cache()
+    record["allocated_bytes_after_phase"] = after = {}
+
+    def phase_end(phase):
+        """What is still allocated once a phase has released its work, and
+        the phase's seconds (phases 1-3 together)."""
+        now = time.perf_counter()
+        seconds[phase] = now - t_phase[0]
+        t_phase[0] = now
+        after[phase] = torch.cuda.memory_allocated(device)
+        log(f"after phase {phase}: {seconds[phase]:.1f} s, "
+            f"{after[phase] / 1e9:.3f} GB allocated, "
+            f"{torch.cuda.memory_reserved(device) / 1e9:.3f} GB reserved")
+
+    phase_end("1-3")
     # 4. fit() at full width per engine, each with its counters set to 0
     # just before and read just after; then the engines on one batch, the
     # accumulate times and the CLI
@@ -4092,14 +4454,6 @@ def main() -> int:
         record["cli"][engine] = run_cli(device, ["--arch", "vit-base"],
                                         engine)
         log(f"cli {engine}: {json.dumps(record['cli'][engine])}")
-    record["allocated_bytes_after_phase"] = after = {}
-
-    def phase_end(phase):
-        """What is still allocated once a phase has released its work."""
-        after[phase] = torch.cuda.memory_allocated(device)
-        log(f"after phase {phase}: {after[phase] / 1e9:.3f} GB allocated, "
-            f"{torch.cuda.memory_reserved(device) / 1e9:.3f} GB reserved")
-
     phase_end("4")
     # 5. full-width qwen2-0.5b at 1,024 tokens
     record["denselm"] = run_denselm(device, cuda_ms)
@@ -4142,7 +4496,7 @@ def main() -> int:
                                        *record["denselm"]["fit"].values(),
                                        *life["fits"].values())]
     counted += [life["checkpoint"]["launches"],
-                life["protocol"]["launches"]]
+                life["protocol"]["launches"], srv["quickstart"]["launches"]]
     counted += [r["launches"] for phase, models in (
                     (ssm, SSM_MODELS), (moe, MOE_MODELS),
                     (front, FRONTEND_MODELS))

@@ -17,9 +17,9 @@ over ``torch.distributed`` (the ``dp`` layout of
 accumulates its rows of every physical batch, the ranks' accumulators are
 folded once per logical batch, and every rank applies the same noisy
 update.  Checkpoints under more than one rank, the ``dp_sp`` and ``2d``
-layouts, serving across ranks and the session's ``serve_engine``/
-``generate`` are not ported yet (serve a session's params through
-:meth:`repro_torch.serve.ServeEngine.from_session`).
+layouts and serving across ranks are not ported yet.  ``serve_engine``
+and ``generate`` serve the session's current parameters through
+:class:`repro_torch.serve.ServeEngine`.
 
 Quickstart::
 
@@ -175,6 +175,7 @@ class PrivacySession:
         self._evaluate = build_eval_fn(self.loss_fn)
         self.restored_meta: Optional[dict] = None   # set by restore()
         self._ckpt_writer = None                    # lazy AsyncCheckpointer
+        self._serve_engines: dict = {}              # serve_engine()'s cache
 
     @classmethod
     def from_config(cls, model_cfg, dp_cfg: Optional[DPConfig] = None,
@@ -595,3 +596,73 @@ class PrivacySession:
             "device": str(self.device),
             "launch": self.executor.describe(),
         }
+
+    # -- serving ------------------------------------------------------------
+
+    def serve_engine(self, *, max_slots: int = 4, max_len: int = 64,
+                     prefill_chunk: int = 1,
+                     token_budget: Optional[int] = None,
+                     prefix_sharing: bool = True, obs=None):
+        """A :class:`~repro_torch.serve.ServeEngine` over the session's
+        CURRENT parameters and executor, cached per (max_slots, max_len,
+        prefill_chunk, token_budget, prefix_sharing), so repeated
+        ``generate()`` calls reuse one engine.  On reuse the engine is
+        refreshed, so the params of a ``fit()`` in between are served.
+        A family whose decode path the port lacks raises, as
+        ``ServeEngine`` does."""
+        from ..serve import ServeEngine
+        key = (max_slots, max_len, prefill_chunk, token_budget,
+               prefix_sharing)
+        engine = self._serve_engines.get(key)
+        if engine is None:
+            engine = ServeEngine.from_session(
+                self, max_slots=max_slots, max_len=max_len,
+                prefill_chunk=prefill_chunk, token_budget=token_budget,
+                prefix_sharing=prefix_sharing, obs=obs)
+            self._serve_engines[key] = engine
+        else:
+            engine.refresh(self.state.params)
+            if obs is not None:
+                engine.obs = as_registry(obs)
+        return engine
+
+    def generate(self, *, batch: int = 4, prompt_len: int = 8,
+                 new_tokens: int = 8, max_len: int = 64, greedy: bool = True,
+                 temperature: float = 1.0, top_k: int = 0) -> dict:
+        """Autoregressive generation with the session's current parameters
+        (e.g. after fit() or restore()), a thin single-batch wrapper over
+        :class:`~repro_torch.serve.ServeEngine`: ``batch`` synthetic
+        requests are submitted together and drained through the
+        continuous-batching scheduler.  The prompts are the reference's
+        ``jax.random.randint(PRNGKey(seed + 1), (batch, prompt_len), 0,
+        vocab)``, bit for bit, drawn on the session's device.
+        ``greedy=False`` samples at ``temperature`` with optional ``top_k``
+        truncation, each request on its own stream (seeded from
+        ``TrainConfig.seed`` + 1 + request index)."""
+        from ..serve import Request, SamplingParams
+        from ..serve.sampling import prng_key, randint
+        cfg, tc = self.model_cfg, self.train_cfg
+        if prompt_len + new_tokens > max_len:
+            raise ValueError(
+                f"prompt_len({prompt_len}) + new_tokens({new_tokens}) "
+                f"exceeds max_len={max_len}: the cache would fill before "
+                f"generation completes (raise max_len)")
+        engine = self.serve_engine(max_slots=batch, max_len=max_len)
+        key = prng_key(torch.full((1,), tc.seed + 1, dtype=torch.int64,
+                                  device=self.device))
+        prompt = randint(key, (batch, prompt_len), 0, cfg.vocab).cpu()
+        temp = 0.0 if greedy else temperature
+        reqs = [Request(prompt=prompt[i].tolist(), max_new_tokens=new_tokens,
+                        sampling=SamplingParams(temperature=temp, top_k=top_k,
+                                                seed=tc.seed + 1 + i))
+                for i in range(batch)]
+        t0 = time.time()
+        out = engine.run(reqs)
+        dt = max(time.time() - t0, 1e-9)
+        by_rid = {r["rid"]: r["generated"] for r in out["results"]}
+        first = min(by_rid)
+        return {"generated": [by_rid[first + i] for i in range(batch)],
+                "tokens_per_s": round(batch * (prompt_len + new_tokens) / dt,
+                                      1),
+                "iterations": out["iterations"],
+                "occupancy": out["occupancy"]}

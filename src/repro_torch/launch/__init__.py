@@ -1,1 +1,1 @@
-"""Launch-side helpers and the training CLI of the port."""
+"""Launch-side helpers and the training and serving CLIs of the port."""

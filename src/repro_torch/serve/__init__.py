@@ -6,30 +6,33 @@ primitives (``DenseLM.init_cache``/``decode_step``):
                                            RequestState
   * :mod:`~repro_torch.serve.cache_pool` — one (max_slots, max_len) cache,
                                            per-slot insert/evict/reset,
-                                           [B] position vector
+                                           [B] position vector,
+                                           PrefixIndex prompt-prefix
+                                           sharing with in-place row
+                                           copies on the device
   * :mod:`~repro_torch.serve.sampling`   — per-request greedy/temperature/
                                            top-k token selection
   * :mod:`~repro_torch.serve.scheduler`  — iteration-level continuous
-                                           batching at one token an
-                                           iteration, mid-flight admission
-                                           and retirement, recovery, cancel
+                                           batching, mid-flight admission
+                                           and retirement, chunked prefill
+                                           under a per-iteration token
+                                           budget, recovery, cancel
   * :mod:`~repro_torch.serve.engine`     — ServeEngine.from_session: the
                                            pool + scheduler through the
                                            session's executor
 
-Still to come (ROADMAP queue 1): chunked prefill and the per-iteration
-token budget (item 1c); ``PrefixIndex`` and prefix sharing,
-``PrivacySession.serve_engine``/``generate``, ``launch/serve.py`` and the
-quickstart twin (1d); the other families' caches (item 2); serving on a
-mesh (item 5).
+The session's ``serve_engine``/``generate`` and ``repro_torch.launch.serve``
+(the CLI) are the entry points over it.  Still to come (ROADMAP queue 1):
+the other families' caches (item 2); serving on a mesh (item 5).
 """
-from .cache_pool import CachePool
+from .cache_pool import CachePool, PrefixIndex
 from .engine import (ServeEngine, latency_percentiles, percentiles,
                      ttft_percentiles)
 from .request import Request, RequestState, SamplingParams
 from .sampling import sample_tokens
 from .scheduler import Scheduler
 
-__all__ = ["CachePool", "ServeEngine", "Request", "RequestState",
-           "SamplingParams", "Scheduler", "latency_percentiles",
-           "percentiles", "sample_tokens", "ttft_percentiles"]
+__all__ = ["CachePool", "PrefixIndex", "ServeEngine", "Request",
+           "RequestState", "SamplingParams", "Scheduler",
+           "latency_percentiles", "percentiles", "sample_tokens",
+           "ttft_percentiles"]

@@ -1,5 +1,4 @@
-"""Slot-based KV-cache pool: the reference's ``serve/cache_pool.py``
-without prefix sharing.
+"""Slot-based KV-cache pool: the reference's ``serve/cache_pool.py``.
 
 The pool allocates the model's decode cache ONCE at ``(max_slots, max_len)``
 through ``model.init_cache`` and the executor's ``place_cache``, then serves
@@ -12,7 +11,11 @@ requests out of its batch rows ("slots") without ever reallocating:
     (stale entries are masked dead: reads stop at the new occupant's own
     write position),
   * :meth:`CachePool.evict`  — return a finished request's slot to the
-    free list.
+    free list,
+  * :meth:`CachePool.share_prefix` — on admission, copy the longest
+    resident prompt prefix's KV rows (found through the
+    :class:`PrefixIndex`) into the new slot, so its request skips that
+    much prefill.
 
 Per-slot write positions live in the host-side ``positions`` vector (one
 int32 per slot), synced from the scheduler's request states each iteration.
@@ -26,13 +29,14 @@ reference's ``jax.tree.leaves`` order.
 
 The decode step writes the cache IN PLACE, which is the port's form of the
 donation the reference guards its template against: the template's leaves
-are clones.  ``prefix_index`` is ``None`` and there is no ``share_prefix``
-until prefix sharing is ported (ROADMAP queue 1 item 1d);
-``supports_prefix_sharing`` is computed as the reference computes it.
+are clones, and ``reset`` and ``share_prefix`` write into the cache's own
+tensors (a rebound dict would be lost to the steps).  ``share_prefix``
+takes the source, destination and depth as host ints, so it reads nothing
+back from the device.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,6 +90,67 @@ def detect_pos_axes(model, params, max_len: int, dtype):
     return axes
 
 
+class PrefixIndex:
+    """Hash-trie over the prompt token prefixes of RESIDENT slots.
+
+    Each trie node is keyed by a token id and records which slots' prompts
+    pass through it.  ``lookup`` walks a new prompt down the trie and
+    returns the deepest (slot, depth) whose resident occupant has already
+    WRITTEN at least ``depth`` cache rows (the ``valid_depth`` callable:
+    rows beyond a resident's current position do not exist yet, and rows
+    beyond its prompt hold generated tokens, which are not part of any
+    prompt prefix).
+    """
+
+    def __init__(self):
+        self._root: Dict = {}               # token -> [slots_set, children]
+        self._tokens: Dict[int, tuple] = {}  # slot -> registered prompt
+
+    def register(self, slot: int, tokens) -> None:
+        tokens = tuple(int(t) for t in tokens)
+        if slot in self._tokens:
+            self.unregister(slot)
+        self._tokens[slot] = tokens
+        node = self._root
+        for t in tokens:
+            entry = node.setdefault(t, [set(), {}])
+            entry[0].add(slot)
+            node = entry[1]
+
+    def unregister(self, slot: int) -> None:
+        tokens = self._tokens.pop(slot, None)
+        if tokens is None:
+            return
+        node = self._root
+        for t in tokens:
+            entry = node.get(t)
+            if entry is None:
+                return
+            entry[0].discard(slot)
+            nxt = entry[1]
+            if not entry[0]:
+                del node[t]         # prune: no slot passes through anymore
+                return
+            node = nxt
+
+    def lookup(self, tokens, valid_depth, exclude=()) -> tuple:
+        """Longest (slot, depth) prefix match among registered slots with
+        ``valid_depth(slot) >= depth``; (None, 0) when nothing matches.  At
+        the deepest depth the lowest slot wins."""
+        best_slot, best_depth = None, 0
+        node = self._root
+        for d, t in enumerate(tokens):
+            entry = node.get(int(t))
+            if entry is None:
+                break
+            cands = [s for s in entry[0]
+                     if s not in exclude and valid_depth(s) >= d + 1]
+            if cands:
+                best_slot, best_depth = min(cands), d + 1
+            node = entry[1]
+        return best_slot, best_depth
+
+
 class CachePool:
     """A fixed pool of ``max_slots`` independent decode-cache rows."""
 
@@ -115,12 +180,14 @@ class CachePool:
             zip(_leaves(self.cache), self._needs_reset) if need]
         self.positions = np.zeros(self.max_slots, np.int32)
         self._free: List[int] = list(range(self.max_slots))
-        # only position-masked-KV pools could share a prefix: an
-        # accumulating leaf at a resident's CURRENT depth is not the state
-        # at the prefix depth
+        # prefix sharing: only position-masked-KV pools can share. An
+        # accumulating leaf (a sliding window's ring) at a resident's
+        # CURRENT depth is not the state at the prefix depth, so copying it
+        # would be wrong; such pools refuse to share (index None)
         self.supports_prefix_sharing = all(
             ax is not None for ax in self._pos_axes)
-        self.prefix_index = None
+        self.prefix_index = (PrefixIndex() if self.supports_prefix_sharing
+                             else None)
         self._refcount = np.zeros(self.max_slots, np.int64)
         self._pending_free: set = set()
 
@@ -142,10 +209,13 @@ class CachePool:
 
     def evict(self, slot: int) -> None:
         """Return a slot to the free list (its stale rows are cleared by the
-        reset that precedes the next insert).  A pinned slot is parked
-        instead, and freed when the last pin drops."""
+        reset that precedes the next insert).  A slot pinned as the source
+        of an in-flight prefix copy is parked instead, and freed when the
+        last pin drops: evict never frees rows still being copied from."""
         if slot in self._free or slot in self._pending_free:
             raise ValueError(f"slot {slot} is already free")
+        if self.prefix_index is not None:
+            self.prefix_index.unregister(slot)
         self.positions[slot] = 0
         if self._refcount[slot] > 0:
             self._pending_free.add(slot)
@@ -153,8 +223,12 @@ class CachePool:
             self._free.append(slot)
 
     def pin(self, slot: int) -> None:
-        """Hold ``slot``'s rows live across an evict (the contract a prefix
-        copy from a resident slot builds on)."""
+        """Hold ``slot``'s rows live across an evict (a prefix-copy source).
+
+        In the single-threaded scheduler the pin window is the synchronous
+        ``share_prefix`` call itself, so evict can only observe a pin if a
+        caller holds one across iterations: the refcount is the contract an
+        overlapped copy path builds on."""
         self._refcount[slot] += 1
 
     def unpin(self, slot: int) -> None:
@@ -168,8 +242,8 @@ class CachePool:
     def assert_consistent(self) -> None:
         """Structural invariants of the slot lifecycle; raises AssertionError
         naming the violation.  The scheduler's exception recovery calls it
-        to prove a mid-iteration failure left no leaked slot or negative
-        refcount behind."""
+        to prove a mid-iteration failure left no leaked slot, negative
+        refcount or stale prefix-index entry behind."""
         every = set(range(self.max_slots))
         free = set(self._free)
         assert len(free) == len(self._free), \
@@ -193,6 +267,12 @@ class CachePool:
             assert self.positions[s] == 0, \
                 f"pending-free slot {s} has nonzero position " \
                 f"{self.positions[s]}"
+        if self.prefix_index is not None:
+            occupied = every - free - self._pending_free
+            registered = set(self.prefix_index._tokens)
+            assert registered <= occupied, \
+                f"prefix index still registers non-occupied slots " \
+                f"{sorted(registered - occupied)}"
 
     @property
     def occupied(self) -> set:
@@ -200,6 +280,48 @@ class CachePool:
         by exactly one active request (the scheduler reconciles strays)."""
         return (set(range(self.max_slots)) - set(self._free)
                 - self._pending_free)
+
+    # -- prefix sharing ------------------------------------------------------
+
+    def share_prefix(self, slot: int, tokens) -> int:
+        """On admission into ``slot``: copy the longest matching resident
+        prompt prefix's KV rows into ``slot`` and register ``tokens`` so
+        later admissions can match against this slot.  Returns the shared
+        depth (0 = no match or sharing unsupported); the new occupant
+        starts at that depth."""
+        if self.prefix_index is None:
+            return 0
+        tokens = [int(t) for t in tokens]
+
+        def valid_depth(s):
+            # rows a resident has WRITTEN, capped at its prompt length
+            # (rows past the prompt hold generated tokens)
+            return min(int(self.positions[s]),
+                       len(self.prefix_index._tokens.get(s, ())))
+
+        # cap at len-1: the new request must consume >= 1 token to produce
+        # the logits its first generated token is sampled from
+        src, depth = self.prefix_index.lookup(tokens[:-1], valid_depth,
+                                              exclude=(slot,))
+        if src is not None and depth > 0:
+            self.pin(src)
+            try:
+                self._share_fn(self.cache, src, slot, depth)
+            finally:
+                self.unpin(src)
+        self.prefix_index.register(slot, tokens)
+        self.positions[slot] = depth if src is not None else 0
+        return depth if src is not None else 0
+
+    def _share_fn(self, cache, src: int, dst: int, depth: int) -> None:
+        """Copy rows [0, depth) of every leaf from slot ``src`` to ``dst``
+        along each leaf's (batch, position) axes, in place: one device copy
+        per leaf, every index a host int (no read from the device)."""
+        for leaf, bax, pax in zip(_leaves(cache), self._batch_axes,
+                                  self._pos_axes):
+            pax_r = pax - (1 if bax < pax else 0)   # pos axis after select
+            leaf.select(bax, dst).narrow(pax_r, 0, depth).copy_(
+                leaf.select(bax, src).narrow(pax_r, 0, depth))
 
     def reset(self, slots: Sequence[int]) -> None:
         """Make ``slots`` safe for a new occupant: every needs-reset leaf

@@ -15,17 +15,20 @@ Build one from a session (inference spends no privacy budget)::
     state = engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=16))
     out = engine.run()          # continuous batching until the queue drains
 
+``session.generate`` is a thin single-batch wrapper over this class, and
+``python -m repro_torch.launch.serve`` its CLI.
+
 Differences from the reference: the decode and prefill steps are the
 model's eager ``decode_step`` and ``prefill_step`` (no jit; the cache is
 written in place), and the port has no activation-sharding hooks, so the
 reference's ``configure_model`` and ``jit_decode`` have no counterpart.
 Under ``prefill_chunk > 1`` a request's tokens are held to its solo run
 within the logit bound, not bitwise (the scheduler's docstring says why).
-Not ported yet (ROADMAP queue 1): prefix sharing (no ``prefix_sharing``
-argument, ``prefix_sharing`` is False and ``run()``'s ``prefix_*`` keys
-read 0; item 1d), ``PrivacySession.serve_engine``/``generate`` and
-``launch/serve.py`` (1d), the other families' caches (item 2) and serving
-on a mesh (``MeshExecutor.place_cache`` raises; item 5).
+Not ported yet (ROADMAP queue 1): the other families' caches and the
+``extras`` that feed them (item 2; a sliding window's ring, the one
+accumulating cache the port has, refuses prefix sharing as the
+reference's SSM caches do), and serving on a mesh
+(``MeshExecutor.place_cache`` raises; item 5).
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ class ServeEngine:
                  max_slots: int = 4, max_len: int = 64,
                  cache_dtype=torch.float32, admission: str = "continuous",
                  prefill_chunk: int = 1, token_budget: Optional[int] = None,
-                 obs=None):
+                 prefix_sharing: bool = True, obs=None):
         if not hasattr(model, "decode_step"):
             raise ValueError(f"{getattr(model_cfg, 'name', model)} has no "
                              f"decode path in the port (encoder-only, or its "
@@ -137,7 +140,12 @@ class ServeEngine:
         self.greedy_fn = _greedy
         self.pool = CachePool(model, params, self.max_slots, self.max_len,
                               executor=executor, dtype=cache_dtype)
-        self.prefix_sharing = False
+        # prefix sharing only on pools whose every leaf is position-masked
+        # KV: an accumulating leaf (a ring) at the resident's depth is NOT
+        # the prefix-depth state, so such pools refuse to share rather than
+        # serve wrong tokens
+        self.prefix_sharing = bool(prefix_sharing
+                                   and self.pool.supports_prefix_sharing)
         # admission="static" gates admission on an EMPTY pool (the old
         # fixed-batch generate() discipline): the benchmark baseline
         self.scheduler = Scheduler(self, admission=admission,
@@ -147,6 +155,7 @@ class ServeEngine:
     def from_session(cls, session, *, max_slots: int = 4, max_len: int = 64,
                      cache_dtype=torch.float32, prefill_chunk: int = 1,
                      token_budget: Optional[int] = None,
+                     prefix_sharing: bool = True,
                      obs=None) -> "ServeEngine":
         """An engine serving the session's current parameters through the
         session's executor.  The session's metrics registry is inherited
@@ -156,6 +165,7 @@ class ServeEngine:
                    executor=session.executor, max_slots=max_slots,
                    max_len=max_len, cache_dtype=cache_dtype,
                    prefill_chunk=prefill_chunk, token_budget=token_budget,
+                   prefix_sharing=prefix_sharing,
                    obs=obs if obs is not None else getattr(session, "obs",
                                                            None))
 

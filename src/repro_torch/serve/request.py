@@ -94,7 +94,6 @@ class RequestState:
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
         self.prefix_tokens = 0             # prompt tokens served via sharing
-        #                                    (0 until prefix sharing is ported)
 
     # -- scheduling helpers -------------------------------------------------
 

@@ -15,6 +15,7 @@ on (the default):
 
 * ``PRNGKey(seed)`` for an int32 seed is the key ``(0, seed mod 2^32)``;
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, d mod 2^32))``;
+* ``split(key, n)``'s key i is ``threefry2x32(key, (0, i))``;
 * the 32-bit random bits of element j of a flat draw are ``x0 ^ x1`` of
   ``threefry2x32(key, (0, j))`` (the counter is j's 64-bit iota split
   into its high and low words);
@@ -22,7 +23,10 @@ on (the default):
   float in [1, 2), subtracts 1, then scales by (1 - tiny), which rounds to
   1, adds tiny and floors at tiny (``jax.random._uniform``);
 * the Gumbel draw is ``-log(-log(u))`` (``_gumbel``'s "low" mode, JAX's
-  default unless ``jax_high_dynamic_range_gumbel`` is set).
+  default unless ``jax_high_dynamic_range_gumbel`` is set);
+* ``randint`` is ``jax.random._randint`` for int32: two 32-bit draws from
+  ``split(key)``'s two keys, reduced modulo the uint32 span with JAX's
+  multiplier ``(2^16 mod span)^2 mod span`` (the square wraps at 2^32).
 
 The integers and the uniform are exact; ``log`` differs by ULPs between
 XLA, PyTorch's CPU and CUDA, so the Gumbel values agree within a stated
@@ -31,7 +35,8 @@ logits' device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Tuple
 
 import torch
 
@@ -59,6 +64,17 @@ def fold_in(key: Key, data: torch.Tensor) -> Key:
     return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
 
 
+def split(key: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)`` per row: ``num`` keys, key i being
+    ``threefry2x32(key, (0, i))`` (the partitionable split)."""
+    out = []
+    for i in range(num):
+        count = torch.full_like(key[0], i)
+        out.append(threefry2x32(key[0], key[1], torch.zeros_like(count),
+                                count))
+    return out
+
+
 def random_bits(key: Key, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` per row: (B, n) int64 holding
     uint32."""
@@ -66,6 +82,27 @@ def random_bits(key: Key, n: int) -> torch.Tensor:
     b1, b2 = threefry2x32(key[0][:, None], key[1][:, None],
                           torch.zeros_like(j), j)
     return b1 ^ b2
+
+
+def randint(key: Key, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for one
+    key, its words of shape (1,) (``prng_key`` of one seed): int32 of
+    ``shape`` on the key's device.  The bounds are int32 values."""
+    for v in (minval, maxval):
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise ValueError(f"randint's bounds must be int32 values, got {v}")
+    n = math.prod(shape)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, n)[0], random_bits(k2, n)[0]
+    # the span as uint32 (1 when maxval <= minval: minval is returned);
+    # every product below stays under 2^32: the multiplier is 0 once the
+    # span passes 2^16, and below it both factors are under 2^16
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    offset = (((higher % span) * mult + lower % span) & _M32) % span
+    out = (minval + offset) & _M32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+        torch.int32).reshape(shape)
 
 
 def uniform(bits: torch.Tensor) -> torch.Tensor:

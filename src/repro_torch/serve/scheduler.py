@@ -1,10 +1,14 @@
 """Continuous-batching scheduler (Orca-style iteration-level scheduling):
-the reference's ``serve/scheduler.py`` without prefix sharing.
+the reference's ``serve/scheduler.py``.
 
 One scheduler iteration = one fused step over ALL pool slots:
 
   1. **admit** — queued requests claim free slots; their rows are reset in
-     one batched select (no reallocation),
+     one batched select (no reallocation).  On pools that support it, a
+     new request's prompt is matched against RESIDENT slots' prompts
+     through the :class:`~repro_torch.serve.cache_pool.PrefixIndex`: the
+     longest shared prefix's KV rows are copied on the device and the
+     request starts at the shared depth (skipping that much prefill),
   2. **consume** — build per-slot token/position vectors on the host:
      decoding slots feed the token they sampled last step (1 token);
      prefilling slots feed their next ``prefill_chunk`` prompt tokens,
@@ -36,8 +40,10 @@ the port's is not), so under ``prefill_chunk > 1`` a request's logits are
 held to its solo run within the logit bound, not bitwise, and a token may
 differ where the top two logits lie within it.  Stalled (``n_tok == 0``)
 and free slots leave their cache rows untouched in a chunk iteration.
-Prefix sharing is not ported (ROADMAP queue 1 item 1d): ``prefix_hits``
-and ``prefix_tokens_shared`` stay 0.
+Rows copied from a sharing source are the bits the sharer would have
+written itself at one token an iteration; under chunks its chunk
+boundaries move by the shared depth, so its logits are held within the
+logit bound.
 """
 from __future__ import annotations
 
@@ -116,6 +122,12 @@ class Scheduler:
             return      # steady state: nothing to admit
         if self.admission == "static" and self.active:
             return      # static batching: drain the whole group first
+        share = self.engine.prefix_sharing
+        if share:
+            # sync resident write depths so the prefix lookup sees the rows
+            # that exist NOW, not last iteration's
+            for slot, st in self.active.items():
+                pool.positions[slot] = st.pos
         newly: List[int] = []
         now = time.time()
         for _ in range(len(self.queue)):
@@ -127,15 +139,21 @@ class Scheduler:
                 state.slot = slot
                 state.admitted_at = now
                 self.prompt_tokens_admitted += state.prompt_len
-                state.pos = 0
-                state.status = PREFILL
+                depth = pool.share_prefix(slot, state.prompt) if share else 0
+                if depth:
+                    self.prefix_hits += 1
+                    self.prefix_tokens_shared += depth
+                    state.prefix_tokens = depth
+                state.pos = depth
+                state.status = (PREFILL if state.pos < state.prompt_len
+                                else DECODE)
                 self.active[slot] = state
                 newly.append(slot)
             except Exception:
-                # a failed admission must neither leak the claimed slot nor
-                # drop the request: the slot goes back to the pool and the
-                # request back to the FRONT of the queue, then the error
-                # propagates
+                # a failed admission (e.g. the prefix copy raising) must
+                # neither leak the claimed slot nor drop the request: the
+                # slot goes back to the pool and the request back to the
+                # FRONT of the queue, then the error propagates
                 self.active.pop(slot, None)
                 try:
                     pool.evict(slot)
@@ -143,11 +161,18 @@ class Scheduler:
                     pass                    # evict itself was what failed
                 state.slot = None
                 state.pos = 0
+                state.prefix_tokens = 0
                 state.admitted_at = None
                 state.status = QUEUED
                 self.queue.appendleft(state)
                 raise
         pool.reset(newly)
+        if share:
+            # reset() zeroes positions; restore the shared depths (the step
+            # re-syncs from RequestState.pos anyway: this keeps the pool's
+            # vector coherent for same-iteration lookups)
+            for slot in newly:
+                pool.positions[slot] = self.active[slot].pos
 
     def step(self) -> bool:
         """Run one scheduler iteration; False when there is nothing to do.
@@ -331,11 +356,13 @@ class Scheduler:
 
     def _record_request(self, st: RequestState) -> None:
         """Per-request lifecycle telemetry at retirement: queue wait, TTFT,
-        TPOT, all host timestamps, no device reads."""
+        TPOT, prefix hit, all host timestamps, no device reads."""
         obs = self.obs
         if not obs.enabled:
             return
         obs.inc("serve/requests_finished")
+        if st.prefix_tokens:
+            obs.inc("serve/prefix_hits")
         for name, val in (("serve/queue", st.queue_time()),
                           ("serve/ttft", st.ttft()),
                           ("serve/tpot", st.tpot())):

@@ -1,7 +1,8 @@
 """The port's serving core (``serve/request.py``, ``cache_pool.py``,
 ``scheduler.py``, ``engine.py``) against the reference's ``ServeEngine``
-(``prefix_sharing=False``) on the same weights, then the port against
-itself, mirroring ``tests/test_serve.py``.
+(``prefix_sharing=False`` on both sides) on the same weights, then the
+port against itself, mirroring ``tests/test_serve.py``.  Prefix sharing is
+held in ``tests/test_torch_serve_prefix.py``.
 
 Reduced configs through ``TrainConfig(smoke=True)`` (f32, an f32 cache);
 the reference's weights carried over by ``params_from_numpy``; prompts
@@ -64,8 +65,9 @@ from repro_torch.core.session import PrivacySession, TrainConfig
 from repro_torch.launch.executor import LaunchConfig, MeshExecutor
 from repro_torch.models import build
 from repro_torch.resilience.faults import FaultInjected, FaultPlan, active
-from repro_torch.serve import (CachePool, Request, SamplingParams,
-                               ServeEngine, latency_percentiles, percentiles,
+from repro_torch.serve import (CachePool, PrefixIndex, Request,
+                               SamplingParams, ServeEngine,
+                               latency_percentiles, percentiles,
                                ttft_percentiles)
 from repro_torch.serve import cache_pool as port_cache_pool
 from repro_torch.serve import engine as port_engine
@@ -277,7 +279,7 @@ def engines(qwen):
         if (width, chunk, budget) not in made:
             made[width, chunk, budget] = ServeEngine.from_session(
                 qwen, max_slots=width, max_len=MAX_LEN, prefill_chunk=chunk,
-                token_budget=budget)
+                token_budget=budget, prefix_sharing=False)
         return made[width, chunk, budget]
     return get
 
@@ -436,7 +438,8 @@ def test_cache_pool_insert_evict_positions(qwen):
     # position-masked KV caches reset for free: no template leaves retained
     assert pool._needs_reset == [False] * len(pool._needs_reset)
     assert pool._template_leaves == []
-    assert pool.supports_prefix_sharing and pool.prefix_index is None
+    assert pool.supports_prefix_sharing
+    assert isinstance(pool.prefix_index, PrefixIndex)
 
 
 def test_pool_rejects_oversized_prompt(qwen):
@@ -545,8 +548,8 @@ def test_cancel_queued_and_active(qwen):
 
 
 def test_assert_consistent_catches_violations(qwen):
-    """The consistency check fails on each class of corruption it covers
-    (the prefix-index case waits for prefix sharing)."""
+    """The consistency check fails on each class of corruption it covers,
+    the prefix index's stale entries included."""
     pool = CachePool(qwen.model, qwen.state.params, 2, 16)
     s = pool.insert()
     pool.assert_consistent()
@@ -562,6 +565,11 @@ def test_assert_consistent_catches_violations(qwen):
     with pytest.raises(AssertionError, match="negative refcount"):
         pool.assert_consistent()
     pool._refcount[s] = 0
+
+    pool.prefix_index.register(1 - s, [1, 2, 3])    # registered but free
+    with pytest.raises(AssertionError, match="prefix index"):
+        pool.assert_consistent()
+    pool.prefix_index.unregister(1 - s)
     pool.assert_consistent()
 
 
