@@ -82,10 +82,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                steps and a fresh session restored from step 2, bitwise
                (params sha256, ε ``float.hex``), with each save's size, copy
                and commit times and the fit's checkpoint waits; the chaos
-               harness killing subprocess runs at ``ckpt/mid_d2h``,
-               ``ckpt/after_state_before_manifest`` and ``fit/step_end``,
-               each resumed bitwise from a snapshot; and the paper-protocol
-               twin's four engines at full width;
+               harness killing subprocess runs at ``ckpt/mid_d2h`` and
+               ``fit/step_end``, each resumed bitwise from a snapshot (the
+               other five points, ``ckpt/after_state_before_manifest``
+               among them, on the CPU only, to pay for phase 13); and the
+               paper-protocol twin's four engines at full width;
 7. ssm      — full-width mamba2-1.3b cut to 4 of its 48 layers
                (309,328,640 params; cut in depth so the whole script
                stays inside its limit on a slow host) and zamba2-1.2b at
@@ -288,7 +289,43 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card (``QUICKSTART OK``, ε ≤ 8, the noise-only body once
                a step) and (p) the serving CLI in process, at full width
                (12 requests through 8 slots in chunks of 32 under a budget
-               of 64) and with ``--smoke --ckpt`` on the twin's checkpoint.
+               of 64) and with ``--smoke --ckpt`` on the twin's checkpoint;
+13. serve_ssm — full-width, full-depth mamba2-1.3b and zamba2-1.2b, each
+               from ``PrivacySession.from_config`` (``nonprivate``, seed 0),
+               through ``ServeEngine`` pools of 4 slots of 1,024 rows (bf16
+               conv and K/V, the state in f32): (a) the served weights at
+               f32 activations from an f32 cache, (c)'s two 320-token
+               prompts, their first 64 tokens decoded one at a time, the
+               next 224 in chunks of 32, the last 32 decoded, every
+               decoded row and each chunk's last row within
+               ``SSM_F32_LOGIT_REL_TOL`` of ``logits()`` (the argmax equal
+               where the margin exceeds twice it); (b) the mix S (10
+               requests, prompts
+               of 8-48 tokens, 8-16 new, one at temperature 0.8 / top-k 5,
+               one at 1.3 / top-k 1; 6 submitted, 6 iterations, then 4
+               more into reused slots) at one token an iteration, every request
+               ending with "length" in ``SSM_SERVE_ITERATIONS``
+               iterations, the scheduler's two host syncs an iteration and
+               no other; a probe served before and after S through the
+               same slots, its tokens and first-token row bitwise (the
+               reset clears the state and conv); two of S's requests alone
+               through the same engine bitwise to S (tokens and first-token
+               rows); (c) S with two greedy 320-token prompts in chunks of
+               32 under a budget of 64: the budget kept, the two syncs an
+               iteration, S's first-token rows against (b)'s and the long
+               prompts' against ``logits()`` printed (bf16: not bounded,
+               see ``SSM_SERVE_CHUNK``); (d) a slot stalled 24 tokens into
+               its prompt and a free slot, every cache leaf's rows bitwise
+               through the chunk step; (e) the engine of (b), asked for
+               prefix sharing, reports it off and 0 hits; (f)
+               ``session.generate`` twice, bitwise.  Printed with the card's
+               name and power limit: tokens/s, TTFT p50/p95, iterations
+               and ms per iteration (chunk and decode) for (b) and (c), ms
+               per decode step at B = 1 and 4 against its bound
+               (weights, the state read and written), one step's device
+               kernels and device ms under ``torch.profiler``, and the
+               cache's bytes.
+               None of the four training kernels launches in it.
                Every phase's seconds are printed.
 
 ``python3 chip_smoke.py --ghost-streams-src DIR`` runs phase 3's two-stream
@@ -1902,18 +1939,20 @@ LIFECYCLE_TRAIN = dict(n_data=512, q=0.125, physical_batch=32,
 MICROBATCH_REL_TOL = STREAM_PE_REL_TOL
 MICROBATCHES = 4
 # the chaos cases: full-width ViT-Base, masked_fused_stream, 6 steps with a
-# checkpoint every 2, the reference's arming for the checkpoint points (on
-# the second save); the other four training points run on the CPU
-# (tests/test_torch_chaos.py).  Each case must resume from a snapshot, not
-# fall back to a fresh run.  fit/step_end is armed at step 5, not the
-# reference's 3: a 0.69 GB commit takes about 2 s, longer than step 3, so
-# a kill at step 3 finds no durable snapshot and the "resume" is a fresh
-# run; by step 5 the save at step 4 has waited for step 2's commit
+# checkpoint every 2, the reference's arming for the checkpoint point (on
+# the second save); the other five training points run on the CPU
+# (tests/test_torch_chaos.py): ckpt/after_state_before_manifest, a kill
+# between the host's writes of the state and the manifest, left the card
+# to pay for phase 13 (the device's D2H copy and a step's end stay).  Each
+# case must resume from a snapshot, not fall back to a fresh run.
+# fit/step_end is armed at step 5, not the reference's 3: a 0.69 GB commit
+# takes about 2 s, longer than step 3, so a kill at step 3 finds no durable
+# snapshot and the "resume" is a fresh run; by step 5 the save at step 4
+# has waited for step 2's commit
 CHAOS_CASE = dict(arch="vit-base", full=True, engine="masked_fused_stream",
                   steps=6, ckpt_every=2, n_data=128, q=0.125,
                   physical_batch=16, seq_len=16, sigma=0.8, timeout=300)
-CHAOS_POINTS = ("ckpt/mid_d2h", "ckpt/after_state_before_manifest",
-                "fit/step_end")
+CHAOS_POINTS = ("ckpt/mid_d2h", "fit/step_end")
 CHAOS_AT = {"fit/step_end": 5}
 # the protocol twin's arguments beyond --device (none: full width)
 PROTOCOL_ARGS = ()
@@ -2339,8 +2378,8 @@ def check_ssd(session):
     with torch.no_grad():
         x = p["emb.w"][batch["tokens"].long()].to(cfg.act_dtype)
         h = cm.rmsnorm(Tape(), "ln", x, cm.sub_params(lp, "ln"), path="ln")
-        _, xs, Bm, Cm, dt, u = _mamba_pre(Tape(), "m", "m",
-                                          cm.sub_params(lp, "mamba"), h, cfg)
+        _, xs, Bm, Cm, dt, u, _ = _mamba_pre(
+            Tape(), "m", "m", cm.sub_params(lp, "mamba"), h, cfg)
         B, T = xs.shape[:2]
         args = [a.float() for a in (xs.reshape(B, T, cfg.nheads_ssm,
                                                cfg.ssm_head_dim),
@@ -3133,11 +3172,12 @@ def decode_sequence(model, params, prompt, lens, chunk, steps, S,
     return last, torch.stack(out, 1), seq, cache
 
 
-def teacher_forced(model, lens, last, decoded, seq) -> dict:
+def teacher_forced(model, lens, last, decoded, seq,
+                   tol=DECODE_LOGIT_REL_TOL) -> dict:
     """Every logit row of ``decode_sequence`` against the full-sequence
     ``logits()`` of the same tokens, as a share of the position's largest
     |logit|; greedy tokens compared where the full forward's top-2 margin
-    exceeds DECODE_LOGIT_REL_TOL of it."""
+    exceeds ``tol`` of it."""
     import torch
     with torch.no_grad():
         full = model.logits(seq)
@@ -3149,7 +3189,7 @@ def teacher_forced(model, lens, last, decoded, seq) -> dict:
         err = ((got - ref).abs().amax(dim=-1) / scale)
         worst = max(worst, float(err.max()))
         top2 = ref.topk(2, dim=-1).values
-        wide = (top2[:, 0] - top2[:, 1]) > DECODE_LOGIT_REL_TOL * scale
+        wide = (top2[:, 0] - top2[:, 1]) > tol * scale
         same = got.argmax(dim=-1) == ref.argmax(dim=-1)
         n_pos += got.shape[0]
         n_margin += int(wide.sum())
@@ -3159,14 +3199,14 @@ def teacher_forced(model, lens, last, decoded, seq) -> dict:
 
 
 def time_decode(model, params, B, S, steps):
-    """Host ms per ``decode_step`` of B slots of an S-row cache (the calls
-    end in a synchronise; the positions S/2 onward), and one more step as
-    ``torch.profiler`` sees it: its device kernels, their device ms, and
-    the three kernel names that take the most of it (None off the
+    """Host ms per ``decode_step`` of B slots of an S-row bf16 cache (the
+    calls end in a synchronise; the positions S/2 onward), and one more
+    step as ``torch.profiler`` sees it: its device kernels, their device
+    ms, and the three kernel names that take the most of it (None off the
     card)."""
     import torch
-    cache = model.init_cache(params, B, S)
-    dev = cache["blocks"]["k"].device
+    cache = model.init_cache(params, B, S, dtype=torch.bfloat16)
+    dev = params["emb.w"].device
     tok = torch.zeros(B, 1, dtype=torch.int32, device=dev)
     for i in range(3):
         model.decode_step(params, cache, tok, S // 2 + i)
@@ -3207,16 +3247,29 @@ def time_prefill(model, params, B, S, chunk, chunks) -> float:
     return 1e3 * (time.perf_counter() - t0) / chunks
 
 
-def decode_bound(params, cfg, B, S, cache_bytes_per_elem=2):
-    """(ms, "bytes" | "operations", bytes) of one decode step: every weight
-    read once but the embedding, of which B rows; every layer's K and V
-    cache read once; the new K/V rows and the bf16 logits written; 2 f32
-    ops per weight and slot."""
+def decode_bound(model, params, B, S):
+    """(ms, "bytes" | "operations", bytes) of one decode step of B slots of
+    an S-row bf16 cache: every weight read once but the embedding, of which
+    B rows; every cache leaf read once; a position-indexed leaf's (K/V) one
+    row a slot written, an accumulating one's (an SSM state, a conv tail)
+    rows written whole; the bf16 logits written; 2 f32 ops per weight and
+    slot.  The cache's shapes come from ``init_cache`` on meta params, as
+    the pool's probes take them (no allocation)."""
+    import torch
+    from repro_torch.serve.cache_pool import detect_pos_axes
+    from repro_torch.utils.params import flatten_tree
+    meta = {k: torch.empty_like(p, device="meta") for k, p in params.items()}
+    leaves = flatten_tree(model.init_cache(meta, B, S, dtype=torch.bfloat16))
+    pos_axes = detect_pos_axes(model, params, S, torch.bfloat16)
+    read = written = 0
+    for c, ax in zip(leaves.values(), pos_axes):
+        n = c.numel() * c.element_size()
+        read += n
+        written += n if ax is None else n // c.shape[ax]
     weights = sum(p.numel() * p.element_size() for n, p in params.items()
                   if n != "emb.w")
-    kv = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.hd * cache_bytes_per_elem
-    nbytes = (weights + B * cfg.d_model * 4 + kv * B * S + kv * B
-              + B * cfg.vocab * 2)
+    vocab, d = params["emb.w"].shape
+    nbytes = weights + B * d * 4 + read + written + B * vocab * 2
     ops = 2 * B * sum(p.numel() for n, p in params.items() if n != "emb.w")
     ms, by = bound_ms(nbytes, f32_ops=ops)
     return ms, by, nbytes
@@ -3341,7 +3394,7 @@ def run_decode(device, smi: str) -> dict:
     for b in DECODE_TIMED_B:
         ms, prof = time_decode(model, params, b, DECODE_CACHE,
                                DECODE_TIMED_STEPS)
-        bms, by, nbytes = decode_bound(params, cfg, b, DECODE_CACHE)
+        bms, by, nbytes = decode_bound(model, params, b, DECODE_CACHE)
         cache_bytes = (cfg.n_layers * 2 * b * DECODE_CACHE * cfg.n_kv_heads
                        * cfg.hd * 2)
         res["timed"][f"decode_B{b}"] = rec = {
@@ -3475,9 +3528,10 @@ def serve_request(spec):
                    rid=rid)
 
 
-def serve_run(engine, mix, admission="continuous"):
-    """M through ``engine`` (SERVE_FIRST requests, SERVE_EARLY_STEPS
-    iterations, the rest, then drain), each iteration timed on the host
+def serve_run(engine, mix, admission="continuous", first=SERVE_FIRST,
+              early=SERVE_EARLY_STEPS):
+    """M through ``engine`` (``first`` requests, ``early`` iterations, the
+    rest, then drain), each iteration timed on the host
     clock (every iteration ends in its one device-to-host read).  Returns
     (engine.run()'s output, which covers the drain only, with "iter_ms" and
     "whole": the iterations, occupancy, seconds and tokens/s of all of M,
@@ -3497,11 +3551,11 @@ def serve_run(engine, mix, admission="continuous"):
     t0 = time.perf_counter()
     try:
         states = {s[0]: engine.submit(serve_request(s))
-                  for s in mix[:SERVE_FIRST]}
-        for _ in range(SERVE_EARLY_STEPS):
-            assert engine.step(), "M drained before its late requests"
+                  for s in mix[:first]}
+        for _ in range(early):
+            assert engine.step(), "the mix drained before its late requests"
         states.update({s[0]: engine.submit(serve_request(s))
-                       for s in mix[SERVE_FIRST:]})
+                       for s in mix[first:]})
         out = engine.run()
     finally:
         del sch.step
@@ -3564,10 +3618,12 @@ def serve_trace(engine, rows=False, force=None, hold_stall=False,
     tokens after its prompt in place of its own (teacher forcing).  With
     ``hold_stall``, the first chunk step in which an active slot consumes
     nothing holds that slot's K/V rows and a free slot's bitwise through
-    the step.  With ``syncs``, on a card, CUDA's sync debug mode warns at
+    the step (every cache leaf, along the pool's batch axes).  With
+    ``syncs``, on a card, CUDA's sync debug mode warns at
     every host sync of the run and ``tr["syncs"]`` counts them by the line
     that made them ({"file:line": n}; None off the card)."""
     import torch
+    from repro_torch.utils.params import flatten_tree
     sch, pool = engine.scheduler, engine.pool
     inner = engine.decode_fn, engine.prefill_fn
     tr = {"path": [], "n_tok": [], "decoding": [], "first": {}, "rows": {},
@@ -3615,15 +3671,18 @@ def serve_trace(engine, rows=False, force=None, hold_stall=False,
                 held = {"iteration": len(tr["path"]), "n_tok": n,
                         "stalled": stalled[0],
                         "free": free[0] if free else None}
-                before = {(k, slot): c[:, slot].clone()
-                          for k, c in pool.cache["blocks"].items()
+                before = {(k, ax, slot): c.select(ax, slot).clone()
+                          for (k, c), ax in zip(
+                              flatten_tree(pool.cache).items(),
+                              pool.batch_axes)
                           for slot in (held["stalled"], held["free"])
                           if slot is not None}
         logits, cache = inner[1](params, cache, forced(tok), pos, n_tok)
         if held is not None:
-            held["bitwise"] = {f"{k}{slot}": same_bits(
-                cache["blocks"][k][:, slot], v)
-                for (k, slot), v in before.items()}
+            after = flatten_tree(cache)
+            held["bitwise"] = {f"{k}[{slot}]": same_bits(
+                after[k].select(ax, slot), v)
+                for (k, ax, slot), v in before.items()}
             tr["stall"] = held
         note("chunk", n, logits)
         return logits, cache
@@ -3715,25 +3774,27 @@ def topk1_against_greedy(rows, greedy, topk1) -> dict:
             "tied_positions": ties, "tied_at_divergence": tied_at_split}
 
 
-def against_one_slot(rows, solo_rows) -> dict:
+def against_one_slot(rows, solo_rows, tol=DECODE_LOGIT_REL_TOL,
+                     hold=True) -> dict:
     """One slot's logits rows against M's (``rows``, from the width of M),
-    both consuming M's tokens: every row within DECODE_LOGIT_REL_TOL of
-    M's largest |logit|, and the argmax equal wherever M's top-2 margin
-    exceeds twice that."""
+    both consuming M's tokens: every row within ``tol`` of M's largest
+    |logit|, and the argmax equal wherever M's top-2 margin exceeds twice
+    that (with ``hold`` False, the figures alone)."""
     import torch
     assert len(rows) == len(solo_rows), (len(rows), len(solo_rows))
     ref, got = torch.stack(rows), torch.stack(solo_rows)
     scale = ref.abs().amax(dim=-1)
     err = float(((got - ref).abs().amax(dim=-1) / scale).max())
     top2 = ref.topk(2, dim=-1).values
-    wide = (top2[:, 0] - top2[:, 1]) > 2 * DECODE_LOGIT_REL_TOL * scale
+    wide = (top2[:, 0] - top2[:, 1]) > 2 * tol * scale
     same = got.argmax(dim=-1) == ref.argmax(dim=-1)
     res = {"positions": len(rows), "max_rel_err": err,
            "margin_positions": int(wide.sum()),
            "argmax_equal": int((same & wide).sum()),
            "argmax_equal_all": int(same.sum())}
-    assert err <= DECODE_LOGIT_REL_TOL, res
-    assert res["argmax_equal"] == res["margin_positions"], res
+    if hold:
+        assert err <= tol, res
+        assert res["argmax_equal"] == res["margin_positions"], res
     return res
 
 
@@ -4094,7 +4155,7 @@ def check_share_prefix(pool, depth: int) -> dict:
     import torch
     src, dst = pool.insert(), pool.insert()
     leaves = list(pool.cache["blocks"].values())
-    for leaf, bax in zip(leaves, pool._batch_axes):
+    for leaf, bax in zip(leaves, pool.batch_axes):
         for slot, sign in ((src, 1.0), (dst, -1.0)):
             row = leaf.select(bax, slot)
             ramp = torch.arange(row.numel(), device=row.device) % 251 + 1
@@ -4107,8 +4168,8 @@ def check_share_prefix(pool, depth: int) -> dict:
     res = {"depth": got, "slots": (src, dst), "leaves": len(leaves),
            "dtype": str(leaves[0].dtype), "copied": [], "past_depth": [],
            "others": []}
-    for leaf, old, bax, pax in zip(leaves, before, pool._batch_axes,
-                                   pool._pos_axes):
+    for leaf, old, bax, pax in zip(leaves, before, pool.batch_axes,
+                                   pool.pos_axes):
         pax_r = pax - (1 if bax < pax else 0)
         s_row, d_row = leaf.select(bax, src), leaf.select(bax, dst)
         rest = d_row.shape[pax_r] - depth
@@ -4123,8 +4184,8 @@ def check_share_prefix(pool, depth: int) -> dict:
     row_bytes = sum(leaf.select(bax, 0).narrow(pax - (1 if bax < pax else 0),
                                                0, depth).numel()
                     * leaf.element_size()
-                    for leaf, bax, pax in zip(leaves, pool._batch_axes,
-                                              pool._pos_axes))
+                    for leaf, bax, pax in zip(leaves, pool.batch_axes,
+                                              pool.pos_axes))
     if leaves[0].device.type == "cuda":
         res["copy_ms"] = cuda_ms(lambda: pool._share_fn(pool.cache, src, dst,
                                                         depth), 20)
@@ -4222,14 +4283,14 @@ def run_serve_prefix(session, smi: str) -> dict:
     return res
 
 
-def check_generate(session, smi: str) -> dict:
-    """Phase 12 (o): ``session.generate`` twice through one cached engine,
-    the tokens bitwise, the prompts bitwise to the port's draw on the CPU
-    for the session's seed."""
+def check_generate(session, smi: str, label: str = "phase 12 (o)",
+                   kw=SERVE_GENERATE) -> dict:
+    """``session.generate(**kw)`` twice through one cached engine, the
+    tokens bitwise, the prompts bitwise to the port's draw on the CPU for
+    the session's seed (phase 12 (o), phase 13 (f))."""
     import torch
     from repro_torch.serve.sampling import prng_key, randint
     t0 = time.perf_counter()
-    kw = SERVE_GENERATE
     engine = session.serve_engine(max_slots=kw["batch"],
                                   max_len=kw["max_len"])
     prompts, inner = [], engine.submit
@@ -4255,7 +4316,7 @@ def check_generate(session, smi: str) -> dict:
            "prompts_bitwise_to_cpu": prompts[:b] == prompts[b:] == want,
            "generated": outs[0]["generated"]}
     res["seconds"] = time.perf_counter() - t0
-    log(f"[{smi}] phase 12 (o) session.generate twice: {json.dumps(res)}")
+    log(f"[{smi}] {label} session.generate twice: {json.dumps(res)}")
     assert res["same_engine"] and res["tokens_bitwise"], res
     assert res["prompts_bitwise_to_cpu"], (prompts, want)
     assert all(len(g) == kw["new_tokens"] for g in res["generated"]), res
@@ -4320,6 +4381,315 @@ def run_serve_entry(device, smi: str) -> dict:
         assert all(len(g) == 8 for g in ckpt["generated"]), ckpt
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 13: serving the recurrent-state families (mamba2, zamba2)
+# --------------------------------------------------------------------------
+
+# full-width, full-depth mamba2-1.3b and zamba2-1.2b from
+# PrivacySession.from_config (nonprivate, seed 0, random weights, bf16
+# activations), pools of 4 slots of 1,024 rows with a bf16 conv (and K/V)
+# cache and the f32 state
+SSM_SERVE_ARCHS = ("mamba2-1.3b", "zamba2-1.2b")
+SSM_SERVE_SLOTS = 4
+SSM_SERVE_MAX_LEN = 1024
+# the mix S: 10 requests from a seeded numpy generator, prompts of 8-48
+# tokens, 8-16 new; request 2 at temperature 0.8 / top-k 5 (seed 11),
+# request 8 at 1.3 / top-k 1 (seed 9), the others greedy; 6 submitted
+# first, 6 iterations, then the other 4, admitted into reused slots
+SSM_SERVE_REQUESTS = 10
+SSM_SERVE_FIRST = 6
+SSM_SERVE_EARLY_STEPS = 6
+SSM_SERVE_PROMPT = (8, 48)
+SSM_SERVE_NEW = (8, 16)
+SSM_SERVE_SAMPLED = {2: (0.8, 5, 11), 8: (1.3, 1, 9)}
+# (a) the decode path against logits() in f32, at full depth: the served
+# weights at f32 activations and an f32 cache, (c)'s two long prompts,
+# their first 64 tokens decoded one at a time, then (c)'s chunks, then the
+# last 32 decoded again: those read the state and conv tail that the
+# chunks wrote (a chunk's own last row hardly does: with random weights the
+# SSMs forget within a few tokens)
+SSM_F32_DECODE = (64, 32)
+# every decoded row and each chunk's last row against logits() of the same
+# tokens, as a share of the row's largest |logit| (the argmax equal where
+# the margin exceeds twice it).  The CPU at full width, random weights from
+# seed 0, mamba2 cut to 2, 4, 8 and 16 of its 48 layers reads 2.8e-6,
+# 3.1e-6, 4.6e-6, 8.7e-6 decoded and 1.8e-6, 4.2e-6, 4.8e-6, 7.6e-6 in
+# chunks (about 2.5e-5 at 48), zamba2 at 8 and 14 of its 38 6.0e-6, 8.4e-6
+# and 6.1e-6, 8.2e-6: the full-depth guess, a factor 2 for the card's
+# summation orders and a factor 2 of margin
+SSM_F32_LOGIT_REL_TOL = 1e-4
+# (b) the probe (prompt, new tokens) served before and after S through the
+# same slots
+SSM_SERVE_PROBE = (8, 6)
+# the iterations of S at one token an iteration and of (c), as the CPU
+# rehearsal counts them: every request ends on its length, so the
+# schedule depends on the lengths alone
+SSM_SERVE_ITERATIONS = (122, 51)
+# (f) session.generate, twice
+SSM_SERVE_GENERATE = dict(batch=2, prompt_len=8, new_tokens=8, max_len=64)
+# (c) S with two greedy prompts of 320 tokens (8 new each) among its first
+# requests, in chunks of 32 under a budget of 64 tokens an iteration; its
+# bf16 rows against (b)'s and against logits() are printed, not bounded: in
+# bf16 the decode path rounds apart from the training path by design, in
+# the reference as in the port (the decode conv sums in f32, the training
+# conv in the activation dtype), and the gap grows with depth (0.126 of the
+# largest logit for 64 decoded tokens on full-depth mamba2, H100 80GB
+# HBM3, 700.00 W; tests/test_torch_serve_ssm.py holds the port's gap within
+# twice the reference's own); (a) holds the same path in f32.
+# (d) into the chunk engine's 4 slots, (prompt, new tokens): three
+# requests, one iteration (8, 32, 24: the first ends), then a fourth,
+# which takes slot 0: its second iteration consumes 32, 32, 0 with slot 2
+# stalled 24 tokens into its prompt and slot 3 free
+SSM_SERVE_CHUNK = 32
+SSM_SERVE_BUDGET = 64
+SSM_SERVE_LONG = (320, 320)
+SSM_SERVE_LONG_NEW = 8
+SSM_SERVE_STALL = ((8, 1), (100, 2), (100, 2), (100, 2))
+SSM_SERVE_STALL_N_TOK = [32, 32, 0, 0]
+# the timed decode steps: B = 1 and 4 slots of a 1,024-row cache
+SSM_SERVE_TIMED_B = (1, 4)
+SSM_SERVE_TIMED_STEPS = 10
+
+
+def ssm_mix(vocab: int, seed: int = 0) -> list:
+    """S as [(rid, prompt, max_new_tokens, (temperature, top_k, seed) or
+    None)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SSM_SERVE_PROMPT[0], SSM_SERVE_PROMPT[1] + 1,
+                        SSM_SERVE_REQUESTS)
+    news = rng.integers(SSM_SERVE_NEW[0], SSM_SERVE_NEW[1] + 1,
+                        SSM_SERVE_REQUESTS)
+    return [(i, rng.integers(0, vocab, n).tolist(), int(m),
+             SSM_SERVE_SAMPLED.get(i)) for i, (n, m) in enumerate(zip(lens,
+                                                                      news))]
+
+
+def f32_decode_parity(model, prompts) -> dict:
+    """(a): ``model``'s weights at f32 activations, prompts (B, T) from an
+    f32 cache: the first SSM_F32_DECODE[0] tokens through ``decode_step``
+    one at a time, then ``prefill_step`` in chunks of SSM_SERVE_CHUNK, the
+    last SSM_F32_DECODE[1] through ``decode_step`` again; each decoded row
+    and each chunk's last row against ``logits()`` of the same tokens
+    (``against_one_slot`` at SSM_F32_LOGIT_REL_TOL)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build
+    m32 = build(dataclasses.replace(model.cfg, dtype="float32"),
+                device=prompts.device)
+    m32.load_state_dict(model.state_dict())
+    params = m32.params()
+    B, T = prompts.shape
+    C, (head, tail) = SSM_SERVE_CHUNK, SSM_F32_DECODE
+    cache = m32.init_cache(params, B, T, dtype=torch.float32)
+    rows = {"decode": [], "chunks": []}
+    n = torch.full((B,), C, dtype=torch.int32, device=prompts.device)
+    for t in list(range(head)) + list(range(T - tail, T)):
+        if t == T - tail:
+            for i in range(head, T - tail, C):
+                lg, cache = m32.prefill_step(params, cache,
+                                             prompts[:, i:i + C], i, n)
+                rows["chunks"].append((i + C - 1, lg))
+        lg, cache = m32.decode_step(params, cache, prompts[:, t:t + 1], t)
+        rows["decode"].append((t, lg))
+    with torch.no_grad():
+        full = m32.logits(prompts).float()
+    return {k: against_one_slot(
+        [full[b, t] for t, _ in v for b in range(B)],
+        [lg[b].float() for _, lg in v for b in range(B)],
+        SSM_F32_LOGIT_REL_TOL) for k, v in rows.items()}
+
+
+def run_serve_ssm_model(arch, device, smi: str) -> dict:
+    """Phase 13 on one model (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DPConfig
+    from repro_torch.core.session import PrivacySession, TrainConfig
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.params import flatten_tree
+    t0 = time.perf_counter()
+    session = PrivacySession.from_config(
+        arch, DPConfig(engine="nonprivate"),
+        TrainConfig(seed=0, smoke=False), device=device)
+    cfg, model, params = session.model_cfg, session.model, session.state.params
+    vocab = cfg.vocab
+    tag = f"[{smi}] phase 13 {arch}"
+    res = {"arch": arch, "slots": SSM_SERVE_SLOTS,
+           "max_len": SSM_SERVE_MAX_LEN}
+    rng = np.random.default_rng(1)
+    longs = [(600 + i, rng.integers(0, vocab, n).tolist(),
+              SSM_SERVE_LONG_NEW, None) for i, n in enumerate(SSM_SERVE_LONG)]
+    # (a) the decode path against logits() in f32
+    res["f32_parity"] = f32 = f32_decode_parity(
+        model, torch.tensor([p for _, p, _, _ in longs], device=device))
+    log(f"{tag} (a) f32, {SSM_F32_DECODE[0]} tokens decoded, chunks of "
+        f"{SSM_SERVE_CHUNK}, the last {SSM_F32_DECODE[1]} decoded, against "
+        f"logits(): {json.dumps(f32)}")
+    gc.collect()
+    # (b), (e): S at one token an iteration through an engine that asked
+    # for prefix sharing; the probe before and after through the same slots
+    engine = ServeEngine.from_session(
+        session, max_slots=SSM_SERVE_SLOTS, max_len=SSM_SERVE_MAX_LEN,
+        cache_dtype=torch.bfloat16, prefix_sharing=True)
+    leaves = flatten_tree(engine.pool.cache)
+    res["cache_bytes"] = {n: c.numel() * c.element_size()
+                          for n, c in leaves.items()}
+    res["cache_bytes_per_slot"] = sum(res["cache_bytes"].values()) \
+        // SSM_SERVE_SLOTS
+    mix = ssm_mix(vocab)
+    res["mix"] = [{"rid": r, "prompt_len": len(p), "max_new_tokens": m,
+                   "sampling": smp} for r, p, m, smp in mix]
+    probe = (500, rng.integers(0, vocab, SSM_SERVE_PROBE[0]).tolist(),
+             SSM_SERVE_PROBE[1], None)
+
+    def run_probe():
+        with serve_trace(engine) as tr:
+            got = engine.run([serve_request(probe)])
+        return got["results"][0]["generated"], tr["first"][probe[0]]
+
+    probe_before = run_probe()
+    with serve_trace(engine, syncs=True) as s_tr:
+        out, states = serve_run(engine, mix, first=SSM_SERVE_FIRST,
+                                early=SSM_SERVE_EARLY_STEPS)
+    probe_after = run_probe()
+    assert_two_syncs(s_tr, out["whole"]["iterations"])
+    gen = {r["rid"]: r["generated"] for r in out["results"]}
+    assert sorted(gen) == list(range(SSM_SERVE_REQUESTS)), sorted(gen)
+    assert all(r["finish_reason"] == "length" for r in out["results"]), out
+    assert all(0 <= t < vocab for toks in gen.values() for t in toks), gen
+    slots = {rid: st.slot for rid, st in states.items()}
+    res["one_token"] = one = serve_figures(out)
+    one["syncs"] = s_tr["syncs"]
+    res["slots_in_S"] = slots
+    res["probe_bitwise"] = (probe_before[0] == probe_after[0]
+                            and same_bits(probe_before[1], probe_after[1]))
+    res["prefix"] = pre = {
+        "requested": True, "enabled": engine.prefix_sharing,
+        "pool_supports": engine.pool.supports_prefix_sharing,
+        "hits": out["prefix_hits"]}
+    log(f"{tag} (b) S at one token an iteration: {json.dumps(one)}; the "
+        f"probe before and after S bitwise: {res['probe_bitwise']}; (e) "
+        f"prefix sharing asked for: {json.dumps(pre)}")
+    assert res["probe_bitwise"], (probe_before, probe_after)
+    assert one["iterations"] == SSM_SERVE_ITERATIONS[0], one
+    assert not pre["enabled"] and not pre["pool_supports"], pre
+    assert pre["hits"] == 0, pre
+    # (b) two of S's requests alone through the same engine: the sampled
+    # one among the first and the shortest greedy one admitted late
+    late = min((m for m in mix if m[0] >= SSM_SERVE_FIRST and m[3] is None),
+               key=lambda m: len(m[1]) + m[2])
+    alone = {}
+    for spec in (mix[min(SSM_SERVE_SAMPLED)], late):
+        with serve_trace(engine) as tr:
+            toks = engine.run([serve_request(spec)])["results"][0][
+                "generated"]
+        alone[spec[0]] = (toks == gen[spec[0]]
+                          and same_bits(tr["first"][spec[0]],
+                                        s_tr["first"][spec[0]]))
+    res["alone"] = {"rids": sorted(alone),
+                    "slots_in_S": [slots[r] for r in sorted(alone)],
+                    "bitwise": all(alone.values())}
+    log(f"{tag} (b) alone at the same width: {json.dumps(res['alone'])}")
+    assert res["alone"]["bitwise"], alone
+    del engine
+    # (c) S with two long prompts in chunks of 32 under a budget of 64
+    chunked = ServeEngine.from_session(
+        session, max_slots=SSM_SERVE_SLOTS, max_len=SSM_SERVE_MAX_LEN,
+        cache_dtype=torch.bfloat16, prefill_chunk=SSM_SERVE_CHUNK,
+        token_budget=SSM_SERVE_BUDGET, prefix_sharing=False)
+    mix_c = mix[:SSM_SERVE_FIRST] + longs + mix[SSM_SERVE_FIRST:]
+    with serve_trace(chunked, syncs=True) as c_tr:
+        out_c, _ = serve_run(chunked, mix_c,
+                             first=SSM_SERVE_FIRST + len(longs),
+                             early=SSM_SERVE_EARLY_STEPS)
+    assert_two_syncs(c_tr, out_c["whole"]["iterations"])
+    got_c = {r["rid"]: r["generated"] for r in out_c["results"]}
+    assert all(r["finish_reason"] == "length" for r in out_c["results"])
+    assert {r: len(t) for r, t in got_c.items()} == {
+        m[0]: m[2] for m in mix_c}, got_c
+    over = [i for i, (n, d) in enumerate(zip(c_tr["n_tok"],
+                                             c_tr["decoding"]))
+            if sum(n) > max(SSM_SERVE_BUDGET, len(d))
+            or any(n[slot] != 1 for slot in d)]
+    with torch.no_grad():
+        full = [model.logits(torch.tensor([p], device=device))[0, -1]
+                .float().cpu() for _, p, _, _ in longs]
+    rids = sorted(gen)
+    res["chunked"] = ch = serve_figures(out_c)
+    ch.update(chunk_iterations=c_tr["path"].count("chunk"),
+              syncs=c_tr["syncs"], over_budget=over,
+              by_path=path_figures(out_c["iter_ms"], c_tr["path"]),
+              tokens_equal_to_one_token=sum(got_c[r] == gen[r]
+                                            for r in rids),
+              first_rows_bf16=against_one_slot(
+                  [s_tr["first"][r] for r in rids],
+                  [c_tr["first"][r] for r in rids], hold=False),
+              long_against_logits_bf16=against_one_slot(
+                  full, [c_tr["first"][r] for r, _, _, _ in longs],
+                  hold=False))
+    log(f"{tag} (c) S and two prompts of {SSM_SERVE_LONG[0]} in chunks of "
+        f"{SSM_SERVE_CHUNK}, budget {SSM_SERVE_BUDGET}: {json.dumps(ch)}")
+    assert not over, over
+    assert ch["iterations"] == SSM_SERVE_ITERATIONS[1], ch
+    # (d) a stalled and a free slot through a chunk step: the stalled slot
+    # has consumed part of its prompt when a later request takes a lower
+    # slot and the budget
+    stall = [(700 + i, rng.integers(0, vocab, n).tolist(), m, None)
+             for i, (n, m) in enumerate(SSM_SERVE_STALL)]
+    with serve_trace(chunked, hold_stall=True) as d_tr:
+        for spec in stall[:-1]:
+            chunked.submit(serve_request(spec))
+        assert chunked.step()
+        chunked.submit(serve_request(stall[-1]))
+        chunked.run()
+    res["stall"] = st = d_tr["stall"]
+    log(f"{tag} (d) stalled and free rows through a chunk step: "
+        f"{json.dumps(st)}")
+    assert st is not None and st["iteration"] == 1, st
+    assert st["n_tok"] == SSM_SERVE_STALL_N_TOK, st
+    assert (st["stalled"], st["free"]) == (2, 3), st
+    assert all(st["bitwise"].values()), st
+    assert len(st["bitwise"]) == 2 * len(leaves), st
+    del chunked
+    # (f) session.generate
+    res["generate"] = check_generate(session, smi, f"phase 13 {arch} (f)",
+                                     SSM_SERVE_GENERATE)
+    # the times: a decode step at B = 1 and 4 against its bound (one more
+    # step under torch.profiler), with the cache's bytes
+    res["timed"] = {}
+    for b in SSM_SERVE_TIMED_B:
+        ms, prof = time_decode(model, params, b, SSM_SERVE_MAX_LEN,
+                               SSM_SERVE_TIMED_STEPS)
+        bms, by, nbytes = decode_bound(model, params, b, SSM_SERVE_MAX_LEN)
+        res["timed"][f"decode_B{b}"] = rec = {
+            "ms": ms, "tokens_per_s": 1e3 * b / ms, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "profile": prof}
+        log(f"{tag} decode B = {b}, max_len {SSM_SERVE_MAX_LEN}: "
+            f"{json.dumps(rec)}")
+    del session, model, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"{tag}: {res['seconds']:.1f} s")
+    return res
+
+
+def run_serve_ssm(device, smi: str) -> dict:
+    """Phase 13 (see the module docstring): both models, then no training
+    kernel launched."""
+    t0 = time.perf_counter()
+    zero_counts()
+    res = {arch: run_serve_ssm_model(arch, device, smi)
+           for arch in SSM_SERVE_ARCHS}
+    res["kernel_launches"] = counts = read_counts()
+    assert not any(counts.values()), counts
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -4489,6 +4859,10 @@ def main() -> int:
         device, smi, dec["timed"]["decode_B8"]["ms"])
     log(f"[{smi}] serve phase: {srv['seconds']:.1f} s")
     phase_end("12")
+    # 13. serving full-width mamba2-1.3b and zamba2-1.2b
+    record["serve_ssm"] = ssm_srv = run_serve_ssm(device, smi)
+    log(f"[{smi}] ssm serve phase: {ssm_srv['seconds']:.1f} s")
+    phase_end("13")
     # the kernels line: launches summed over every fit() run, ViT's,
     # DenseLM's, the lifecycle's, the SSM, MoE and frontend phases' (the
     # chaos runs' own processes aside)

@@ -24,8 +24,10 @@ or ``--device cpu`` is given::
 
 ``--mesh`` builds the session on a mesh executor, which refuses to place
 the serving cache (serving across ranks is not ported: ROADMAP queue 1
-item 5); the error propagates.  Only the dense LMs have a decode path in
-the port.
+item 5); the error propagates.  The dense LMs, mamba2-1.3b and
+zamba2-1.2b have a decode path in the port; the MoE, MLA, Whisper and VLM
+families do not yet (ROADMAP queue 1 item 2), and ``ServeEngine``'s error
+propagates for them too.
 """
 from __future__ import annotations
 

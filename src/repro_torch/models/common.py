@@ -30,7 +30,9 @@ op for op, so the rounding points match:
   their K/V written into the cache (a ring at ``pos mod window`` for a
   sliding window) by ``scatter_rows``, then read through the same ``_sdpa``
   under the reference's mask.  ``init_attn_cache``, ``decode_positions``,
-  ``chunk_valid`` and ``gather_last`` are the reference's cache helpers.
+  ``chunk_valid`` and ``gather_last`` are the reference's cache helpers;
+  :class:`DecodeSteps` holds the ``decode_step`` and ``prefill_step`` that
+  the families with a decode cache share.
 * ``cross_attention``: the reference's ``attention(..., kv_x=)`` — the
   queries from the stream, the keys and values projected from a second
   stream of S rows (the encoder's frames, the projected image tokens),
@@ -125,6 +127,15 @@ def sub_params(p: dict, prefix: str) -> dict:
     """The leaves of ``p`` under ``prefix.``, with the prefix dropped."""
     n = len(prefix) + 1
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix + ".")}
+
+
+def with_cache(params: dict, prefix: str, cache: dict) -> dict:
+    """The leaves of ``params`` under ``prefix.`` with a decode cache's
+    leaves added under ``cache.``: what a decode step's ``scan_blocks``
+    unbinds layer by layer (the cache's leading axes are the leaves')."""
+    stacked = sub_params(params, prefix)
+    stacked.update({f"cache.{n}": c for n, c in cache.items()})
+    return stacked
 
 
 def layernorm(tape: Tape, name: str, x: torch.Tensor, p: dict, *, path: str,
@@ -269,6 +280,47 @@ def scatter_rows(buf: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
     keep = keep.reshape(keep.shape + (1,) * (vals.dim() - 2))
     buf[at] = torch.where(keep, vals.to(buf.dtype), buf[at])
     return buf
+
+
+class DecodeSteps:
+    """``decode_step`` and ``prefill_step`` of a token LM with a decode
+    cache.  The family implements ``_decode_layers(params, cache, x, pos,
+    valid)``: its layers on the embedded (B, T, d) tokens, each writing its
+    slice of the cache IN PLACE; ``valid`` (B, T) masks a chunk's
+    unconsumed tail (None: every token).  A model without this mixin has
+    no decode path: the serving engine refuses it."""
+
+    @torch.no_grad()
+    def _decode_core(self, params, cache, tokens, pos, valid):
+        x = L.embed(Tape(), "emb", tokens, params["emb.w"],
+                    param_path="emb.w").to(self.cfg.act_dtype)
+        x = self._decode_layers(params, cache, x, pos, valid)
+        return rmsnorm(Tape(), "lnf", x, {"w": params["lnf.w"]},
+                       path="lnf"), cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos):
+        """One-token decode: tokens (B, 1) -> (logits (B, V), cache), the
+        cache written in place.  ``pos`` is a scalar (lockstep batch) or a
+        (B,) vector of per-slot positions (continuous batching)."""
+        x, cache = self._decode_core(params, cache, tokens, pos, None)
+        logits = L.dense(Tape(), "head", x, params["head.w"],
+                         param_path="head")
+        return logits[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_step(self, params, cache, tokens, pos, n_tok):
+        """Chunked prefill: consume tokens (B, C) at per-slot offsets
+        ``pos``, row i taking its first n_tok[i] tokens (0..C; the tokens
+        past n_tok leave the cache untouched).  Returns (the logits at each
+        row's last consumed token (B, V), cache), the cache written in
+        place."""
+        n_tok = torch.as_tensor(n_tok, device=tokens.device)
+        x, cache = self._decode_core(params, cache, tokens, pos,
+                                     chunk_valid(tokens, n_tok))
+        logits = L.dense(Tape(), "head", gather_last(x, n_tok),
+                         params["head.w"], param_path="head")
+        return logits[:, 0], cache
 
 
 def init_attn_cache(B: int, S: int, a: AttnCfg, dtype=torch.bfloat16,

@@ -29,7 +29,6 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..core import layers as L
 from ..core.tape import Tape, scan_blocks
 from . import common as cm
 
@@ -69,7 +68,7 @@ class _Blocks(nn.Module):
         self.mlp = _SwiGLU(lead, d, cfg.d_ff, gen, device)
 
 
-class DenseLM(cm.TokenLM):
+class DenseLM(cm.DecodeSteps, cm.TokenLM):
     def _build(self, gen, device):
         cfg = self.cfg
         self.acfg = cm.AttnCfg(
@@ -110,15 +109,8 @@ class DenseLM(cm.TokenLM):
         return {"blocks": {n: v.new_zeros((self.cfg.n_layers,) + v.shape)
                            for n, v in c.items()}}
 
-    @torch.no_grad()
-    def _decode_core(self, params, cache, tokens, pos, valid):
-        tape = Tape()
-        x = L.embed(tape, "emb", tokens, params["emb.w"], param_path="emb.w")
-        x = x.to(self.cfg.act_dtype)
-        pos = cm.decode_positions(pos, tokens.shape[0], tokens.device)
-        # each layer reads its slice of the stacked leaves and of the cache
-        stacked = cm.sub_params(params, "blocks")
-        stacked.update({f"cache.{n}": c for n, c in cache["blocks"].items()})
+    def _decode_layers(self, params, cache, x, pos, valid):
+        pos = cm.decode_positions(pos, x.shape[0], x.device)
 
         def body(sub, p, x):
             h = cm.rmsnorm(sub, "ln1", x, cm.sub_params(p, "ln1"), path="-")
@@ -129,30 +121,7 @@ class DenseLM(cm.TokenLM):
             h = cm.rmsnorm(sub, "ln2", x, cm.sub_params(p, "ln2"), path="-")
             return x + cm.swiglu(sub, "mlp", "-", cm.sub_params(p, "mlp"), h)
 
-        x = scan_blocks(tape, "blocks", body, stacked, x, self.cfg.n_layers)
-        return cm.rmsnorm(tape, "lnf", x, {"w": params["lnf.w"]},
-                          path="lnf"), cache
-
-    @torch.no_grad()
-    def decode_step(self, params, cache, tokens, pos):
-        """One-token decode: tokens (B, 1) -> (logits (B, V), cache), the
-        cache written in place.  ``pos`` is a scalar (lockstep batch) or a
-        (B,) vector of per-slot positions (continuous batching)."""
-        x, cache = self._decode_core(params, cache, tokens, pos, None)
-        logits = L.dense(Tape(), "head", x, params["head.w"],
-                         param_path="head")
-        return logits[:, 0], cache
-
-    @torch.no_grad()
-    def prefill_step(self, params, cache, tokens, pos, n_tok):
-        """Chunked prefill: consume tokens (B, C) at per-slot offsets
-        ``pos``, row i taking its first n_tok[i] tokens (0..C; the tokens
-        past n_tok leave the cache untouched).  Returns (the logits at each
-        row's last consumed token (B, V), cache), the cache written in
-        place."""
-        n_tok = torch.as_tensor(n_tok, device=tokens.device)
-        x, cache = self._decode_core(params, cache, tokens, pos,
-                                     cm.chunk_valid(tokens, n_tok))
-        logits = L.dense(Tape(), "head", cm.gather_last(x, n_tok),
-                         params["head.w"], param_path="head")
-        return logits[:, 0], cache
+        # each layer reads its slice of the stacked leaves and of the cache
+        return scan_blocks(Tape(), "blocks", body,
+                           cm.with_cache(params, "blocks", cache["blocks"]),
+                           x, self.cfg.n_layers)

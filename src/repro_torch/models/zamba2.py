@@ -1,7 +1,7 @@
 """Zamba2-style hybrid as an ``nn.Module``: a Mamba2 backbone and ONE
 shared attention + SwiGLU block applied before every ``attn_every`` mamba
-layers — the reference's ``models/zamba2.py``, training only (serving
-waits for ROADMAP queue 1, item 7).
+layers — the reference's ``models/zamba2.py``, training and serving (the
+decode cache, ``decode_step`` and chunked ``prefill_step``).
 
 The layers nest: ``supers`` is a stack of ``n_layers // attn_every``
 supers, each the shared block and then an ``inner`` stack of
@@ -12,8 +12,18 @@ by every super; its primitives are registered under ``shared/`` names, so
 the clipping engines fold its use axis into the token axis and the
 per-example norms are exact across uses.  The embedding, final norm,
 head and loss are :class:`~.common.TokenLM`'s.
+
+The decode cache is the reference's: ``attn``, one K/V cache per super
+(n_super, B, S, Hkv, Dh), which each application of the shared block
+writes in its own slice; ``supers``, the inner layers' mamba state and
+conv (leading axes (n_super, attn_every)); ``tailb``, the tail's.  The
+K/V rows are indexed by position, the mamba leaves accumulate (see
+:mod:`.mamba2`), so the serving pool resets a reused slot and refuses
+prefix sharing.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 from torch import nn
@@ -21,7 +31,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..core.tape import Tape, scan_blocks
 from . import common as cm
-from .mamba2 import MambaLayers, mamba_layer_body
+from .mamba2 import (MambaLayers, mamba_cache, mamba_decode_body,
+                     mamba_layer_body)
 from .transformer import _Attention, _SwiGLU
 
 
@@ -41,7 +52,7 @@ class _Supers(nn.Module):
         self.inner = MambaLayers((n_super, cfg.attn_every), cfg, gen, device)
 
 
-class Zamba2LM(cm.TokenLM):
+class Zamba2LM(cm.DecodeSteps, cm.TokenLM):
     def _build(self, gen, device):
         cfg = self.cfg
         self.acfg = cm.AttnCfg(
@@ -87,5 +98,53 @@ class Zamba2LM(cm.TokenLM):
         if self.tail:
             x = scan_blocks(tape, "tailb", mamba_layer_body(cfg, "tailb"),
                             cm.stacked_leaves(self.tailb, self._tail_leaves),
+                            x, self.tail)
+        return x
+
+    # -- serving ------------------------------------------------------------
+    def init_cache(self, params: Dict[str, torch.Tensor], B: int, S: int,
+                   dtype=torch.bfloat16) -> dict:
+        """Zero caches of ``B`` slots on the params' device: {"attn": {"k",
+        "v"} (n_super, B, S, Hkv, Dh), "supers": the mamba caches with
+        leading axes (n_super, attn_every), "tailb": the tail's (n_tail,)}
+        (:func:`~.mamba2.mamba_cache`; the state in f32)."""
+        cfg, dev = self.cfg, params["emb.w"].device
+        kv = cm.init_attn_cache(B, S, self.acfg, dtype, device=dev)
+        cache = {"attn": {n: v.new_zeros((self.n_super,) + v.shape)
+                          for n, v in kv.items()},
+                 "supers": mamba_cache((self.n_super, cfg.attn_every), B,
+                                       cfg, dtype, dev)}
+        if self.tail:
+            cache["tailb"] = mamba_cache((self.tail,), B, cfg, dtype, dev)
+        return cache
+
+    def _decode_layers(self, params, cache, x, pos, valid):
+        cfg = self.cfg
+        pos = cm.decode_positions(pos, x.shape[0], x.device)
+        sp = cm.sub_params(params, "shared")
+        inner = mamba_decode_body(cfg, valid)
+        # each super reads its inner stack's leaves and caches and its own
+        # slice of the shared block's K/V cache
+        stacked = cm.sub_params(params, "supers")
+        stacked.update({f"inner.cache.{n}": c
+                        for n, c in cache["supers"].items()})
+        stacked.update({f"attn.{n}": c for n, c in cache["attn"].items()})
+
+        def super_body(sub, p, x):
+            h = cm.rmsnorm(sub, "ln1", x, cm.sub_params(sp, "ln1"), path="-")
+            x = x + cm.decode_attention(sub, "attn", "-",
+                                        cm.sub_params(sp, "attn"), h,
+                                        self.acfg, cm.sub_params(p, "attn"),
+                                        pos, valid)
+            h = cm.rmsnorm(sub, "ln2", x, cm.sub_params(sp, "ln2"), path="-")
+            x = x + cm.swiglu(sub, "mlp", "-", cm.sub_params(sp, "mlp"), h)
+            return scan_blocks(sub, "inner", inner, cm.sub_params(p, "inner"),
+                               x, cfg.attn_every)
+
+        x = scan_blocks(Tape(), "supers", super_body, stacked, x,
+                        self.n_super)
+        if self.tail:
+            x = scan_blocks(Tape(), "tailb", inner,
+                            cm.with_cache(params, "tailb", cache["tailb"]),
                             x, self.tail)
         return x

@@ -1,11 +1,15 @@
 """Request-level serving in the port: continuous batching over a slot-based
-KV-cache pool, the reference's ``serve`` package on DenseLM's decode
-primitives (``DenseLM.init_cache``/``decode_step``):
+decode-cache pool, the reference's ``serve`` package on the decode
+primitives (``init_cache``/``decode_step``/``prefill_step``) of the dense
+LMs (a KV cache), Mamba2 (an SSM state and conv tail a layer) and the
+Zamba2 hybrid (both):
 
   * :mod:`~repro_torch.serve.request`    — Request / SamplingParams /
                                            RequestState
   * :mod:`~repro_torch.serve.cache_pool` — one (max_slots, max_len) cache,
-                                           per-slot insert/evict/reset,
+                                           per-slot insert/evict/reset
+                                           (accumulating leaves restored
+                                           to the template),
                                            [B] position vector,
                                            PrefixIndex prompt-prefix
                                            sharing with in-place row
@@ -23,7 +27,7 @@ primitives (``DenseLM.init_cache``/``decode_step``):
 
 The session's ``serve_engine``/``generate`` and ``repro_torch.launch.serve``
 (the CLI) are the entry points over it.  Still to come (ROADMAP queue 1):
-the other families' caches (item 2); serving on a mesh (item 5).
+the MoE, MLA, Whisper and VLM caches (item 2); serving on a mesh (item 5).
 """
 from .cache_pool import CachePool, PrefixIndex
 from .engine import (ServeEngine, latency_percentiles, percentiles,

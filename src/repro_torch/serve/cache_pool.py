@@ -1,4 +1,4 @@
-"""Slot-based KV-cache pool: the reference's ``serve/cache_pool.py``.
+"""Slot-based decode-cache pool: the reference's ``serve/cache_pool.py``.
 
 The pool allocates the model's decode cache ONCE at ``(max_slots, max_len)``
 through ``model.init_cache`` and the executor's ``place_cache``, then serves
@@ -6,8 +6,9 @@ requests out of its batch rows ("slots") without ever reallocating:
 
   * :meth:`CachePool.insert` — claim a free slot for a new request,
   * :meth:`CachePool.reset`  — make the claimed slots safe for their new
-    occupant: leaves without a position axis (a sliding window's ring) are
-    restored to the template; position-indexed KV rows need nothing
+    occupant: leaves without a position axis (a sliding window's ring, an
+    SSM state or conv tail, which accumulate) are restored to the
+    template; position-indexed KV rows need nothing
     (stale entries are masked dead: reads stop at the new occupant's own
     write position),
   * :meth:`CachePool.evict`  — return a finished request's slot to the
@@ -161,14 +162,16 @@ class CachePool:
             executor = build_executor(None)
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
-        self._batch_axes = detect_batch_axes(model, params, max_len, dtype)
-        self._pos_axes = detect_pos_axes(model, params, max_len, dtype)
+        # each cache leaf's slot axis and position axis (None: the leaf
+        # accumulates), in flatten order
+        self.batch_axes =detect_batch_axes(model, params, max_len, dtype)
+        self.pos_axes = detect_pos_axes(model, params, max_len, dtype)
         # leaves WITHOUT a position axis need a template restore on slot
         # reuse (a ring's rows are reused modulo the window); position-
         # indexed KV leaves do not: decode writes position pos and attention
         # masks reads to <= pos, so every visible entry was written by the
         # slot's current occupant and stale rows are dead by construction
-        self._needs_reset = [ax is None for ax in self._pos_axes]
+        self._needs_reset = [ax is None for ax in self.pos_axes]
         cache = model.init_cache(params, self.max_slots, self.max_len,
                                  dtype=dtype)
         self.cache = executor.place_cache(cache, self.max_slots)
@@ -181,11 +184,11 @@ class CachePool:
         self.positions = np.zeros(self.max_slots, np.int32)
         self._free: List[int] = list(range(self.max_slots))
         # prefix sharing: only position-masked-KV pools can share. An
-        # accumulating leaf (a sliding window's ring) at a resident's
-        # CURRENT depth is not the state at the prefix depth, so copying it
-        # would be wrong; such pools refuse to share (index None)
+        # accumulating leaf (a ring, an SSM state or conv tail) at a
+        # resident's CURRENT depth is not the state at the prefix depth, so
+        # copying it would be wrong; such pools refuse to share (index None)
         self.supports_prefix_sharing = all(
-            ax is not None for ax in self._pos_axes)
+            ax is not None for ax in self.pos_axes)
         self.prefix_index = (PrefixIndex() if self.supports_prefix_sharing
                              else None)
         self._refcount = np.zeros(self.max_slots, np.int64)
@@ -317,38 +320,24 @@ class CachePool:
         """Copy rows [0, depth) of every leaf from slot ``src`` to ``dst``
         along each leaf's (batch, position) axes, in place: one device copy
         per leaf, every index a host int (no read from the device)."""
-        for leaf, bax, pax in zip(_leaves(cache), self._batch_axes,
-                                  self._pos_axes):
+        for leaf, bax, pax in zip(_leaves(cache), self.batch_axes,
+                                  self.pos_axes):
             pax_r = pax - (1 if bax < pax else 0)   # pos axis after select
             leaf.select(bax, dst).narrow(pax_r, 0, depth).copy_(
                 leaf.select(bax, src).narrow(pax_r, 0, depth))
 
     def reset(self, slots: Sequence[int]) -> None:
         """Make ``slots`` safe for a new occupant: every needs-reset leaf
-        takes the template's rows at the slots, one fixed-shape masked
-        select per leaf (the mask goes to the device once a call; no host
+        takes the template's rows at the slots, one in-place row copy per
+        leaf and slot (a host-int index: no transfer to the device, no host
         sync).  Position-masked KV rows are left as they are: their stale
         entries are unreachable, so a pure-KV pool resets for free."""
-        if not len(slots):
-            return
         for s in slots:
             self.positions[s] = 0
-        if not self._template_leaves:
-            return
-        mask = np.zeros(self.max_slots, bool)
-        mask[list(slots)] = True
-        dev = self._template_leaves[0].device
-        self.cache = self._reset_fn(self.cache, self._template_leaves,
-                                    torch.from_numpy(mask).to(dev))
-
-    def _reset_fn(self, cache, template_leaves, mask):
-        """Write the template's rows where ``mask`` (max_slots,) is set into
-        the needs-reset leaves, in place; returns the cache."""
-        tmpl = iter(template_leaves)
-        for c, ax, need in zip(_leaves(cache), self._batch_axes,
+        tmpl = iter(self._template_leaves)
+        for c, ax, need in zip(_leaves(self.cache), self.batch_axes,
                                self._needs_reset):
             if need:
-                shape = [1] * c.dim()
-                shape[ax] = self.max_slots
-                c.copy_(torch.where(mask.reshape(shape), next(tmpl), c))
-        return cache
+                t = next(tmpl)
+                for s in slots:
+                    c.select(ax, s).copy_(t.select(ax, s))

@@ -1,5 +1,6 @@
 """ServeEngine: the request-level serving entry point, the reference's
-``serve/engine.py`` on DenseLM's decode primitives.
+``serve/engine.py`` on the decode primitives of the dense LMs, Mamba2 and
+the Zamba2 hybrid.
 
 Wires the slot-based :class:`~repro_torch.serve.cache_pool.CachePool` and
 the continuous-batching :class:`~repro_torch.serve.scheduler.Scheduler`
@@ -24,11 +25,12 @@ written in place), and the port has no activation-sharding hooks, so the
 reference's ``configure_model`` and ``jit_decode`` have no counterpart.
 Under ``prefill_chunk > 1`` a request's tokens are held to its solo run
 within the logit bound, not bitwise (the scheduler's docstring says why).
-Not ported yet (ROADMAP queue 1): the other families' caches and the
-``extras`` that feed them (item 2; a sliding window's ring, the one
-accumulating cache the port has, refuses prefix sharing as the
-reference's SSM caches do), and serving on a mesh
-(``MeshExecutor.place_cache`` raises; item 5).
+Caches that accumulate (Mamba2's and Zamba2's SSM state and conv tail, a
+sliding window's ring) are reset when a slot is reused and refuse prefix
+sharing, as in the reference.  Not ported yet (ROADMAP queue 1): the
+MoE, MLA, Whisper and VLM caches and the ``extras`` that feed the last two
+(item 2), and serving on a mesh (``MeshExecutor.place_cache`` raises;
+item 5).
 """
 from __future__ import annotations
 
@@ -90,9 +92,11 @@ class ServeEngine:
                  prefill_chunk: int = 1, token_budget: Optional[int] = None,
                  prefix_sharing: bool = True, obs=None):
         if not hasattr(model, "decode_step"):
-            raise ValueError(f"{getattr(model_cfg, 'name', model)} has no "
-                             f"decode path in the port (encoder-only, or its "
-                             f"cache is not ported: ROADMAP queue 1 item 2)")
+            raise ValueError(
+                f"{getattr(model_cfg, 'name', model)} has no decode path in "
+                f"the port: an encoder-only model, or a family whose cache "
+                f"is not ported yet (the MoE and MLA LMs, whisper, the VLM: "
+                f"ROADMAP queue 1 item 2)")
         if executor is None:
             from ..launch.executor import build_executor
             executor = build_executor(None)

@@ -3,12 +3,13 @@ the reference's ``serve/scheduler.py``.
 
 One scheduler iteration = one fused step over ALL pool slots:
 
-  1. **admit** — queued requests claim free slots; their rows are reset in
-     one batched select (no reallocation).  On pools that support it, a
-     new request's prompt is matched against RESIDENT slots' prompts
-     through the :class:`~repro_torch.serve.cache_pool.PrefixIndex`: the
-     longest shared prefix's KV rows are copied on the device and the
-     request starts at the shared depth (skipping that much prefill),
+  1. **admit** — queued requests claim free slots; their accumulating
+     rows are restored from the pool's template in place (no
+     reallocation).  On pools that support it, a new request's prompt is
+     matched against RESIDENT slots' prompts through the
+     :class:`~repro_torch.serve.cache_pool.PrefixIndex`: the longest
+     shared prefix's KV rows are copied on the device and the request
+     starts at the shared depth (skipping that much prefill),
   2. **consume** — build per-slot token/position vectors on the host:
      decoding slots feed the token they sampled last step (1 token);
      prefilling slots feed their next ``prefill_chunk`` prompt tokens,

@@ -596,7 +596,7 @@ def test_ring_cache_reset_restores_slots_bitwise(swa):
                               .manual_seed(0)))
     dirty = [pool.cache["blocks"][n].clone() for n in ("k", "v")]
     pool.reset([1])
-    for n, t, d, ax in zip(("k", "v"), template, dirty, pool._batch_axes):
+    for n, t, d, ax in zip(("k", "v"), template, dirty, pool.batch_axes):
         c = pool.cache["blocks"][n]
         assert torch.equal(c.select(ax, 1), t.select(ax, 1))
         for keep in (0, 2):

@@ -285,7 +285,7 @@ def test_share_prefix_copies_rows(qwen, dtype):
     pool = CachePool(qwen.model, qwen.state.params, 3, 8, dtype=dtype)
     s0, s1, s2 = pool.insert(), pool.insert(), pool.insert()
     for i, (leaf, bax) in enumerate(zip(pool.cache["blocks"].values(),
-                                        pool._batch_axes)):
+                                        pool.batch_axes)):
         for slot, sign in ((s0, 1.0), (s1, -1.0), (s2, 0.5)):
             row = leaf.select(bax, slot)
             row.copy_(sign * (torch.arange(row.numel(), dtype=torch.float32)
@@ -297,7 +297,7 @@ def test_share_prefix_copies_rows(qwen, dtype):
     assert depth == 4 and pool.positions[s1] == 4
     assert pool.prefix_index._tokens[s1] == (1, 2, 3, 4, 9)
     for (k, c), bax, pax in zip(pool.cache["blocks"].items(),
-                                pool._batch_axes, pool._pos_axes):
+                                pool.batch_axes, pool.pos_axes):
         assert c.dtype == dtype
         pax_r = pax - (1 if bax < pax else 0)
         src, dst = c.select(bax, s0), c.select(bax, s1)
